@@ -1,0 +1,22 @@
+"""svo_tpu_torch — the stereo visual-odometry front-end of svo_tpu, ported to
+PyTorch and CUDA.
+
+The package mirrors svo_tpu's layout (ops/, geometry/, pipeline/, io/,
+eval/) so each module's counterpart is easy to find; svo_tpu stays the
+reference the port is tested against. It imports torch and never jax or
+svo_tpu, so it runs on a machine without jax. The one hand-written kernel
+(csrc/klt_patches.cu) is built with nvcc at first use (see _build.py).
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Geometry (PnP, triangulation, SE(3)) needs true f32 products, as svo_tpu
+# forces with jax_default_matmul_precision="float32". TF32 keeps ~3 decimal
+# digits: switch it off for matmuls and for cuDNN convolutions (which
+# default to TF32 on the card).
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from svo_tpu_torch.config import Config, load_config  # noqa: E402,F401

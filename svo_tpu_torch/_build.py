@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+The kernels in csrc/*.cu are compiled with nvcc for Hopper (sm_90a) into one
+shared library with a plain C interface, loaded with ctypes. The library
+goes to build/svo_tpu_torch/ at the repository root, named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads
+the existing library. Nothing is built at import: the first call that
+launches a kernel builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "svo_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found: put the CUDA toolkit's bin/ on PATH or set CUDA_HOME"
+    )
+
+
+def library_path() -> Path:
+    """Path of the built library, compiling it first if the sources or
+    flags changed. Raises RuntimeError with nvcc's output on failure."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"libsvo_tpu_torch_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, with every function's C signature set."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(library_path()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.svo_klt_patches.argtypes = [
+            p, p, p, p, i, i, p, p, i, i, i, p, p, p, p, p,
+        ]
+        lib.svo_klt_patches.restype = i
+        lib.svo_cuda_error_string.argtypes = [i]
+        lib.svo_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        msg = lib.svo_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")

@@ -1,0 +1,294 @@
+"""Batched pyramidal Lucas-Kanade optical flow.
+
+Port of svo_tpu/ops/klt.py (KltTracker, _track_impl, _corners, _blend) on
+its default path: per pyramid level, one rectangular patch per feature and
+image is extracted (template + its two gradients at the feature's integer
+corner, current image at the flow-predicted corner) by
+ops/klt_patches.extract_klt_patches, the CUDA kernel on the card; then all
+LK iterations run densely on the (N, PY, PX) patches with bilinear sampling
+and a per-feature convergence mask (converged features stop moving, as
+cv2's eps exit). The fused LK-level kernel of svo_tpu (ops/lk_pallas.py) is
+not ported yet (ROADMAP B1).
+
+One difference to the CPU path of svo_tpu: that path slices dead slots'
+patches like live ones, while the extraction kernel (here, and svo_tpu's
+TPU kernel) zeroes them, so a dead feature's position stops moving. Only
+positions whose status is True carry meaning in either.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from svo_tpu_torch.config import KltParams
+from svo_tpu_torch.ops.klt_patches import extract_klt_patches
+from svo_tpu_torch.ops.pyramid import klt_pyramid, scharr_gradients
+
+
+class KltResult(NamedTuple):
+    pos: torch.Tensor     # (N, 2) tracked positions (x, y) in the new image
+    status: torch.Tensor  # (N,) bool — survived tracking
+    err: torch.Tensor     # (N,) min eigenvalue at level 0
+
+
+# Pyramid levels are edge-replicate padded at build time, so a feature
+# anywhere in the true image has a full patch around it.
+_PAD_Y = 24
+_PAD_X = 32
+_MY = 6  # rows of upward iteration travel before the patch clamp binds
+
+
+def _patch_rows(window: int) -> int:
+    """Patch rows: window + y margin + up to 7 rows of corner alignment + 1
+    bilinear slack, rounded up to 8."""
+    return ((window + _MY + 9 + 7) // 8) * 8
+
+
+def _level_rows(window: int, H: int) -> int:
+    """Patch rows for a level of height H: the full budget when it fits,
+    else the largest multiple of 8 that still holds a valid template; 0 if
+    the level is too small (the caller skips it)."""
+    py = _patch_rows(window)
+    while py > H - 1:
+        py -= 8
+    if py < window + _MY + 9:
+        return 0
+    return py
+
+
+def _patch_cols(window: int, margin_x: int) -> int:
+    """Patch cols: window + left margin + ~12 px of positive-x travel +
+    bilinear slack, rounded up to 8."""
+    return ((window + margin_x + 13 + 7) // 8) * 8
+
+
+def _corners(pos, guess, H: int, W: int, py: int, px: int, w: int, mx: int):
+    """Integer patch corners for the template (at pos) and current (at
+    pos+guess) patches: the window's top-left minus a margin. y corners
+    are aligned down to a multiple of 8, as svo_tpu aligns them for the
+    TPU's sublanes; the fractional offsets downstream absorb the shift, so
+    the port keeps it to stay numerically equal."""
+    hw = (w - 1) // 2
+
+    def corner(p):
+        y0 = torch.clamp(
+            torch.floor(p[:, 1]).to(torch.int32) - hw - _MY, 0, max(H - py, 0)
+        )
+        y0 = torch.div(y0, 8, rounding_mode="floor") * 8
+        x0 = torch.clamp(
+            torch.floor(p[:, 0]).to(torch.int32) - hw - mx, 0, max(W - px, 0)
+        )
+        return y0, x0
+
+    ty0, tx0 = corner(pos)
+    cy0, cx0 = corner(pos + guess)
+    return ty0, tx0, cy0, cx0
+
+
+def _blend(patches: torch.Tensor, offset: torch.Tensor, window: int) -> torch.Tensor:
+    """Bilinear sample of (N, window, window) at fractional offset (N, 2)
+    (x, y) inside (N, PY, PX) patches; the offset must lie in
+    [0, P - window - 1] per axis. Rows blend first, then columns, as
+    svo_tpu's two one-hot contractions S_y @ patch @ S_x^T; this gathers the
+    four taps instead of multiplying by one-hot matrices."""
+    N, PY, PX = patches.shape
+    w = window
+    ox, oy = offset[:, 0], offset[:, 1]
+    # clamp after the cast as well: a NaN offset must not index out of range
+    ix = torch.floor(ox).long().clamp(0, PX - w - 1)
+    iy = torch.floor(oy).long().clamp(0, PY - w - 1)
+    fx = (ox - ix)[:, None, None]
+    fy = (oy - iy)[:, None, None]
+    ar = torch.arange(w, device=patches.device)
+    base = (
+        torch.arange(N, device=patches.device)[:, None, None] * (PY * PX)
+        + (iy[:, None, None] + ar[None, :, None]) * PX
+        + (ix[:, None, None] + ar[None, None, :])
+    )
+    flat = patches.reshape(-1)
+    p00, p01 = flat[base], flat[base + 1]
+    p10, p11 = flat[base + PX], flat[base + PX + 1]
+    left = p00 * (1.0 - fy) + p10 * fy
+    right = p01 * (1.0 - fy) + p11 * fy
+    return left * (1.0 - fx) + right * fx
+
+
+def _in_box(off: torch.Tensor, max_x: float, max_y: float, lo: float = 0.0):
+    return (
+        (off[:, 0] >= lo)
+        & (off[:, 0] <= max_x - lo)
+        & (off[:, 1] >= lo)
+        & (off[:, 1] <= max_y - lo)
+    )
+
+
+def _clip_off(off: torch.Tensor, max_x: float, max_y: float) -> torch.Tensor:
+    return torch.stack(
+        [torch.clamp(off[:, 0], 0.0, max_x), torch.clamp(off[:, 1], 0.0, max_y)],
+        dim=-1,
+    )
+
+
+def _track_impl(
+    prev_levels, curr_levels, prev_grad_levels, pos, valid, init,
+    window: int, max_level: int, max_iters: int, eps: float,
+    min_eig_threshold: float, margin_x: int = 6, level_iters: tuple | None = None,
+) -> KltResult:
+    N = pos.shape[0]
+    w = window
+    half = (w - 1) / 2.0
+    px = _patch_cols(w, margin_x)
+    eps2 = eps * eps
+    win_area = float(w * w)
+    max_off_x = px - w - 1.0
+
+    guess = init / (2.0 ** (max_level + 1))  # doubled entering the top level
+    status = valid
+    min_eig_out = torch.zeros((N,), dtype=torch.float32, device=pos.device)
+
+    for level in range(max_level, -1, -1):
+        if level_iters is not None:
+            iters_l = min(max_iters, level_iters[min(level, len(level_iters) - 1)])
+        else:
+            iters_l = max_iters
+        img_prev = prev_levels[level]
+        img_curr = curr_levels[level]
+        gx, gy = prev_grad_levels[level]
+        H, W = img_prev.shape          # padded dims (see build_pyramid)
+        Ht, Wt = H - 2 * _PAD_Y, W - 2 * _PAD_X  # true level dims
+
+        p_lvl = pos / (2.0 ** level)
+        guess = guess * 2.0
+
+        # level too small for the patch: skip it, keeping the guess chain
+        py = _level_rows(w, H)
+        if py == 0 or W < px + 1:
+            continue
+        max_off_y = py - w - 1.0
+        p_pad = torch.stack([p_lvl[:, 0] + _PAD_X, p_lvl[:, 1] + _PAD_Y], dim=-1)
+
+        ty0, tx0, cy0, cx0 = _corners(p_pad, guess, H, W, py, px, w, margin_x)
+        t_patch, gx_patch, gy_patch, c_patch = extract_klt_patches(
+            img_prev, gx, gy, img_curr, ty0, tx0, cy0, cx0, status, py=py, px=px,
+        )
+
+        # fractional window offsets inside the patches
+        t_base = torch.stack([tx0, ty0], -1).to(torch.float32)
+        c_base = torch.stack([cx0, cy0], -1).to(torch.float32)
+        t_off = p_pad - half - t_base
+        t_in = _in_box(t_off, max_off_x, max_off_y)
+        t_off_cl = _clip_off(t_off, max_off_x, max_off_y)
+
+        T = _blend(t_patch, t_off_cl, w)
+        Tx = _blend(gx_patch, t_off_cl, w)
+        Ty = _blend(gy_patch, t_off_cl, w)
+
+        # 2x2 normal matrix, once per level (like cv2)
+        a11 = torch.sum(Tx * Tx, dim=(1, 2))
+        a12 = torch.sum(Tx * Ty, dim=(1, 2))
+        a22 = torch.sum(Ty * Ty, dim=(1, 2))
+        tr_half = (a11 + a22) * 0.5
+        disc = torch.sqrt(torch.clamp(tr_half * tr_half - (a11 * a22 - a12 * a12), min=0.0))
+        min_eig = (tr_half - disc) / win_area
+        det = a11 * a22 - a12 * a12
+        solvable = (min_eig > min_eig_threshold) & (det > 1e-12)
+
+        status = status & t_in & solvable
+        if level == 0:
+            min_eig_out = min_eig
+
+        inv_det = 1.0 / torch.where(det > 1e-12, det, 1.0)
+        i11 = a22 * inv_det
+        i12 = -a12 * inv_det
+        i22 = a11 * inv_det
+
+        # iterate: current window at p_lvl + d, converged features frozen
+        d = guess
+        conv = torch.zeros((N,), dtype=torch.bool, device=pos.device)
+        for _ in range(iters_l):
+            c_off = p_pad + d - half - c_base
+            in_patch = _in_box(c_off, max_off_x, max_off_y)
+            Iw = _blend(c_patch, _clip_off(c_off, max_off_x, max_off_y), w)
+            diff = Iw - T
+            b1 = torch.sum(diff * Tx, dim=(1, 2))
+            b2 = torch.sum(diff * Ty, dim=(1, 2))
+            du = -(i11 * b1 + i12 * b2)
+            dv = -(i12 * b1 + i22 * b2)
+            active = (~conv) & in_patch
+            d = torch.where(active[:, None], d + torch.stack([du, dv], dim=-1), d)
+            conv = conv | (du * du + dv * dv < eps2) | (~in_patch)
+
+        # lost if the final window left the patch (~left the search region)
+        # or the TRUE image at this level
+        final_pt = p_lvl + d
+        inside_img = (
+            (final_pt[:, 0] >= 0)
+            & (final_pt[:, 0] < Wt)
+            & (final_pt[:, 1] >= 0)
+            & (final_pt[:, 1] < Ht)
+        )
+        inside_patch = _in_box(p_pad + d - half - c_base, max_off_x, max_off_y, lo=-1.0)
+        status = status & inside_img & inside_patch
+        guess = d
+
+    new_pos = pos + guess
+    # the final position must lie inside the level-0 image (cv2 kills these)
+    H0 = prev_levels[0].shape[0] - 2 * _PAD_Y
+    W0 = prev_levels[0].shape[1] - 2 * _PAD_X
+    inside0 = (
+        (new_pos[:, 0] >= 0)
+        & (new_pos[:, 0] <= W0 - 1)
+        & (new_pos[:, 1] >= 0)
+        & (new_pos[:, 1] <= H0 - 1)
+    )
+    return KltResult(pos=new_pos, status=status & inside0, err=min_eig_out)
+
+
+class KltTracker:
+    """Pyramid-caching KLT front: build pyramids once per image, reuse them
+    for stereo matching and temporal tracking."""
+
+    @staticmethod
+    def build_pyramid(img: torch.Tensor, max_level: int):
+        """((levels...), ((gx, gy)...)) of the edge-padded pyramid."""
+        levels = [
+            torch.nn.functional.pad(
+                l[None, None], (_PAD_X, _PAD_X, _PAD_Y, _PAD_Y), mode="replicate"
+            )[0, 0]
+            for l in klt_pyramid(img, max_level)
+        ]
+        grads = [scharr_gradients(l) for l in levels]
+        return tuple(levels), tuple(grads)
+
+    @staticmethod
+    def track(
+        prev_pyr,
+        curr_pyr,
+        pos: torch.Tensor,
+        valid: torch.Tensor,
+        params: KltParams,
+        init_flow: torch.Tensor | None = None,
+    ) -> KltResult:
+        """Track (N, 2) features `pos` (mask `valid`) from prev to curr,
+        optionally seeded with an (N, 2) level-0 displacement."""
+        prev_levels, prev_grads = prev_pyr
+        curr_levels, _ = curr_pyr
+        if init_flow is None:
+            init_flow = torch.zeros_like(pos)
+        return _track_impl(
+            prev_levels,
+            curr_levels,
+            prev_grads,
+            pos,
+            valid,
+            init_flow,
+            window=params.window,
+            max_level=params.max_level,
+            max_iters=params.max_iters,
+            level_iters=params.level_iters,
+            eps=params.eps,
+            min_eig_threshold=params.min_eig_threshold,
+            margin_x=params.margin_x,
+        )

@@ -1,0 +1,132 @@
+"""Pipeline state: fixed-capacity struct-of-arrays world model.
+
+Port of svo_tpu/pipeline/state.py. FeatureSet is the live feature table,
+MapState the preallocated map with its monotone allocation cursor and the
+COO observation ring, VoState everything a frame step needs. svo_tpu's
+VoState also carries a jax PRNG key; here the engine holds a
+torch.Generator instead, so the port's VoState has no `rng` field.
+
+from_numpy / to_numpy convert between svo_tpu's state fetched to numpy
+(jax.tree.map(np.asarray, state)) and this one, so both packages can run
+a step from the same state.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from svo_tpu_torch.config import Config
+
+
+class FeatureSet(NamedTuple):
+    pos: torch.Tensor       # (N, 2) f32 (x, y)
+    valid: torch.Tensor     # (N,) bool
+    point_id: torch.Tensor  # (N,) i32 map-point index, -1 if none
+    age: torch.Tensor       # (N,) i32 frames survived
+    anchor: torch.Tensor    # (N, 2) f32 position in the anchor keyframe
+
+    @staticmethod
+    def empty(n: int, device=None) -> "FeatureSet":
+        return FeatureSet(
+            pos=torch.zeros((n, 2), dtype=torch.float32, device=device),
+            valid=torch.zeros((n,), dtype=torch.bool, device=device),
+            point_id=torch.full((n,), -1, dtype=torch.int32, device=device),
+            age=torch.zeros((n,), dtype=torch.int32, device=device),
+            anchor=torch.zeros((n, 2), dtype=torch.float32, device=device),
+        )
+
+    def count(self) -> torch.Tensor:
+        return torch.sum(self.valid.to(torch.int32), dtype=torch.int32)
+
+
+class MapState(NamedTuple):
+    points: torch.Tensor      # (M, 3) f32 world positions
+    n_points: torch.Tensor    # i32 allocation cursor
+    obs_u: torch.Tensor       # (O,) f32 u_left
+    obs_v: torch.Tensor       # (O,) f32 v_left
+    obs_ur: torch.Tensor      # (O,) f32 u_right (-1 if mono)
+    obs_pid: torch.Tensor     # (O,) i32 point id
+    obs_fid: torch.Tensor     # (O,) i32 frame id
+    obs_cursor: torch.Tensor  # i32 ring cursor
+
+    @staticmethod
+    def empty(cfg: Config, device=None) -> "MapState":
+        m = cfg.capacity.max_points
+        o = cfg.ba.ring_obs
+        f32 = dict(dtype=torch.float32, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        return MapState(
+            points=torch.zeros((m, 3), **f32),
+            n_points=torch.zeros((), **i32),
+            obs_u=torch.zeros((o,), **f32),
+            obs_v=torch.zeros((o,), **f32),
+            obs_ur=torch.full((o,), -1.0, **f32),
+            obs_pid=torch.full((o,), -1, **i32),
+            obs_fid=torch.full((o,), -1, **i32),
+            obs_cursor=torch.zeros((), **i32),
+        )
+
+
+class VoState(NamedTuple):
+    features: FeatureSet
+    map: MapState
+    prev_pyramid: Any          # ((levels...), ((gx, gy)...)) of the previous left image
+    frame_id: torch.Tensor     # i32 id of the PREVIOUS processed frame
+    prev_is_kf: torch.Tensor   # bool
+    last_kf_id: torch.Tensor   # i32 id of the most recent keyframe
+    pose: torch.Tensor         # (4,4) T_wc of the previous frame
+    rel_motion: torch.Tensor   # (4,4) T_wc(t) @ inv(T_wc(t-1)), constant-velocity prior
+    prior_ok: torch.Tensor     # bool — last PnP was healthy; gates the prior
+    poses: torch.Tensor        # (F, 4, 4) trajectory (camera-to-world)
+    kf_flags: torch.Tensor     # (F,) bool
+    metrics: torch.Tensor      # (F, 5): n_tracked, inlier_ratio, n_final, is_kf, n_map_pts
+
+
+_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.bool_): torch.bool,
+}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype not in _DTYPES:
+        raise TypeError(f"unexpected state dtype {a.dtype}")
+    return torch.tensor(a, dtype=_DTYPES[a.dtype], device=device)
+
+
+def from_numpy(tree, device) -> VoState:
+    """svo_tpu's VoState with numpy leaves -> the port's VoState on
+    `device`. Fields are read by name; the jax `rng` key is dropped (the
+    engine's generator replaces it)."""
+    def t(a):
+        return _tensor(a, device)
+
+    levels, grads = tree.prev_pyramid
+    return VoState(
+        features=FeatureSet(*(t(getattr(tree.features, f)) for f in FeatureSet._fields)),
+        map=MapState(*(t(getattr(tree.map, f)) for f in MapState._fields)),
+        prev_pyramid=(
+            tuple(t(l) for l in levels),
+            tuple((t(gx), t(gy)) for gx, gy in grads),
+        ),
+        **{f: t(getattr(tree, f)) for f in VoState._fields[3:]},
+    )
+
+
+def to_numpy(state: VoState) -> VoState:
+    """The port's VoState -> the same structure with numpy leaves."""
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    levels, grads = state.prev_pyramid
+    return VoState(
+        features=FeatureSet(*(n(a) for a in state.features)),
+        map=MapState(*(n(a) for a in state.map)),
+        prev_pyramid=(tuple(n(l) for l in levels), tuple((n(a), n(b)) for a, b in grads)),
+        **{f: n(getattr(state, f)) for f in VoState._fields[3:]},
+    )
