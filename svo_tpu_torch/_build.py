@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The kernels in csrc/*.cu are compiled with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes. The library
+The kernels in csrc/*.cu (KLT patch extraction, the fused LK level) are
+compiled with nvcc for Hopper (sm_90a) into one shared library with a
+plain C interface, loaded with ctypes. The library
 goes to build/svo_tpu_torch/ at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 the existing library. Nothing is built at import: the first call that
@@ -77,11 +78,17 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(library_path()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.svo_klt_patches.argtypes = [
             p, p, p, p, i, i, p, p, i, i, i, p, p, p, p, p,
         ]
         lib.svo_klt_patches.restype = i
+        # eps2 and min_eig_threshold are C floats: without c_float ctypes
+        # refuses a Python float (or, under c_int, would cut it)
+        lib.svo_lk_level.argtypes = [
+            p, p, p, p, i, i, p, p, p, i, i, i, i, i, i, f, f, p, p,
+        ]
+        lib.svo_lk_level.restype = i
         lib.svo_cuda_error_string.argtypes = [i]
         lib.svo_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

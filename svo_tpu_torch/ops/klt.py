@@ -7,8 +7,13 @@ corner, current image at the flow-predicted corner) by
 ops/klt_patches.extract_klt_patches, the CUDA kernel on the card; then all
 LK iterations run densely on the (N, PY, PX) patches with bilinear sampling
 and a per-feature convergence mask (converged features stop moving, as
-cv2's eps exit). The fused LK-level kernel of svo_tpu (ops/lk_pallas.py) is
-not ported yet (ROADMAP B1).
+cv2's eps exit).
+
+engine="fused" runs svo_tpu's other engine, the fused LK level
+(ops/lk_fused.py, svo_tpu/ops/lk_pallas.py): at every level that passes
+svo_tpu's rule for it (_fused_level_ok), extraction, template sampling and
+all iterations are one launch that returns flow and flags only. Levels
+that fail the rule take the patch path, as they do in svo_tpu.
 
 One difference to the CPU path of svo_tpu: that path slices dead slots'
 patches like live ones, while the extraction kernel (here, and svo_tpu's
@@ -23,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from svo_tpu_torch.config import KltParams
+from svo_tpu_torch.ops import lk_fused
 from svo_tpu_torch.ops.klt_patches import extract_klt_patches
 from svo_tpu_torch.ops.pyramid import klt_pyramid, scharr_gradients
 
@@ -38,6 +44,7 @@ class KltResult(NamedTuple):
 _PAD_Y = 24
 _PAD_X = 32
 _MY = 6  # rows of upward iteration travel before the patch clamp binds
+ENGINES = ("patches", "fused")
 
 
 def _patch_rows(window: int) -> int:
@@ -62,6 +69,23 @@ def _patch_cols(window: int, margin_x: int) -> int:
     """Patch cols: window + left margin + ~12 px of positive-x travel +
     bilinear slack, rounded up to 8."""
     return ((window + margin_x + 13 + 7) // 8) * 8
+
+
+def _fused_level_ok(H: int, W: int, py: int, window: int, margin_x: int) -> bool:
+    """svo_tpu's per-level rule for the fused engine (svo_tpu/ops/klt.py:
+    262-267) without its TPU and environment terms. W > 128 is the TPU
+    kernel's two-lane-tile read, which the CUDA kernel does not need; the
+    rule is kept so that a level picks the engine svo_tpu picks."""
+    return (
+        W > 128
+        and H >= py
+        and py >= window + 2 * _MY
+        and lk_fused.PX >= window + 2 * margin_x + 1
+    )
+
+
+def _inside(pt: torch.Tensor, W: int, H: int) -> torch.Tensor:
+    return (pt[:, 0] >= 0) & (pt[:, 0] < W) & (pt[:, 1] >= 0) & (pt[:, 1] < H)
 
 
 def _corners(pos, guess, H: int, W: int, py: int, px: int, w: int, mx: int):
@@ -135,7 +159,10 @@ def _track_impl(
     prev_levels, curr_levels, prev_grad_levels, pos, valid, init,
     window: int, max_level: int, max_iters: int, eps: float,
     min_eig_threshold: float, margin_x: int = 6, level_iters: tuple | None = None,
+    engine: str = "patches",
 ) -> KltResult:
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} is not one of {ENGINES}")
     N = pos.shape[0]
     w = window
     half = (w - 1) / 2.0
@@ -168,6 +195,22 @@ def _track_impl(
             continue
         max_off_y = py - w - 1.0
         p_pad = torch.stack([p_lvl[:, 0] + _PAD_X, p_lvl[:, 1] + _PAD_Y], dim=-1)
+
+        if engine == "fused" and _fused_level_ok(H, W, py, w, margin_x):
+            # the whole level in one launch; a level that fails the rule
+            # goes on to the patch path below, svo_tpu's own per-level choice
+            d, min_eig, solvable, in_fin = lk_fused.lk_track_level(
+                img_prev, gx, gy, img_curr, p_pad, guess, status,
+                window=w, py=py, max_iters=iters_l, eps=eps,
+                min_eig_threshold=min_eig_threshold,
+                margin_x=margin_x, margin_y=_MY,
+            )
+            status = status & solvable
+            if level == 0:
+                min_eig_out = min_eig
+            status = status & _inside(p_lvl + d, Wt, Ht) & in_fin
+            guess = d
+            continue
 
         ty0, tx0, cy0, cx0 = _corners(p_pad, guess, H, W, py, px, w, margin_x)
         t_patch, gx_patch, gy_patch, c_patch = extract_klt_patches(
@@ -222,15 +265,8 @@ def _track_impl(
 
         # lost if the final window left the patch (~left the search region)
         # or the TRUE image at this level
-        final_pt = p_lvl + d
-        inside_img = (
-            (final_pt[:, 0] >= 0)
-            & (final_pt[:, 0] < Wt)
-            & (final_pt[:, 1] >= 0)
-            & (final_pt[:, 1] < Ht)
-        )
         inside_patch = _in_box(p_pad + d - half - c_base, max_off_x, max_off_y, lo=-1.0)
-        status = status & inside_img & inside_patch
+        status = status & _inside(p_lvl + d, Wt, Ht) & inside_patch
         guess = d
 
     new_pos = pos + guess
@@ -270,9 +306,11 @@ class KltTracker:
         valid: torch.Tensor,
         params: KltParams,
         init_flow: torch.Tensor | None = None,
+        engine: str = "patches",
     ) -> KltResult:
         """Track (N, 2) features `pos` (mask `valid`) from prev to curr,
-        optionally seeded with an (N, 2) level-0 displacement."""
+        optionally seeded with an (N, 2) level-0 displacement. engine:
+        "patches" (svo_tpu's default) or "fused" (see the module doc)."""
         prev_levels, prev_grads = prev_pyr
         curr_levels, _ = curr_pyr
         if init_flow is None:
@@ -291,4 +329,5 @@ class KltTracker:
             eps=params.eps,
             min_eig_threshold=params.min_eig_threshold,
             margin_x=params.margin_x,
+            engine=engine,
         )

@@ -1,0 +1,229 @@
+"""One whole pyramidal-LK level per feature in one launch.
+
+Port of svo_tpu/ops/lk_pallas.py::lk_track_level. On a CUDA tensor the
+wrapper launches the hand-written kernel csrc/lk_level.cu; on a CPU tensor
+it runs lk_track_level_ref, the plain PyTorch version of the same level
+(the CPU tests' path, and what chip_smoke.py holds the kernel against on
+the card).
+
+The geometry is the TPU kernel's, not that of the patch path in ops/klt.py:
+
+- corners: the template window's top-left t = pos - (w-1)/2 at
+  (clip(floor(t_y), 0, H-py), clip(floor(t_x), 0, W-64)); the current
+  window's at floor(c) - margin with c = pos + guess - (w-1)/2, clipped the
+  same way. No 8-row alignment; 64 is the TPU kernel's scratch width and
+  W is the padded level's width.
+- the template offset inside its window is clipped to [0, 2]; whether it
+  had to be is part of `solvable`.
+- iterations move the current offset inside a travel box of 2*margin px
+  per axis; a feature that leaves it stops (conv = min(conv + small +
+  (1 - in_patch), 1)); the final box test allows 1 px of slack.
+- bilinear samples blend along x first, then y, with the hat weights
+  max(0, 1 - |o - tap|) of the TPU kernel.
+- a dead slot (valid False) has zero windows: its d equals the guess, its
+  min_eig is 0 and it is not solvable.
+
+The result d is relative to the guess as in svo_tpu: d = guess + (of - o0).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from svo_tpu_torch import _build
+
+PX = 64      # lk_pallas._PX: the column budget the corners are clipped by
+_T_MAX = 2.0  # lk_pallas._TT_T - 2: the template offset's clip
+
+
+def _check(prev, gx, gy, curr, pos, guess, valid, *, window, py, margin_x, margin_y):
+    """svo_tpu's preconditions (lk_pallas.py:534-539), plus what the
+    kernel reads: four (H, W) f32 images of one shape with H >= py."""
+    imgs = (prev, gx, gy, curr)
+    H, W = prev.shape
+    for im in imgs:
+        if im.dtype != torch.float32 or im.dim() != 2 or tuple(im.shape) != (H, W):
+            raise ValueError(
+                f"images must be four (H, W) float32 tensors of one shape, got "
+                f"{[(tuple(i.shape), i.dtype) for i in imgs]}"
+            )
+        if im.device != prev.device:
+            raise ValueError("images lie on different devices")
+    N = valid.shape[0]
+    if valid.dim() != 1 or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be an (N,) bool tensor, got {tuple(valid.shape)} {valid.dtype}")
+    for name, t in (("pos", pos), ("guess", guess)):
+        if tuple(t.shape) != (N, 2) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({N}, 2) float32, got {tuple(t.shape)} {t.dtype}")
+        if t.device != prev.device:
+            raise ValueError(f"{name} lies on {t.device}, the images on {prev.device}")
+    if valid.device != prev.device:
+        raise ValueError(f"valid lies on {valid.device}, the images on {prev.device}")
+    if ((W + 127) // 128) * 128 < 256:
+        raise ValueError(f"image too narrow: W={W}")
+    if py % 8:
+        raise ValueError(f"py={py} must be a multiple of 8")
+    if py < window + 2 * margin_y:
+        raise ValueError(f"py={py} < window {window} + 2 * margin_y {margin_y}")
+    if PX < window + 2 * margin_x + 1:
+        raise ValueError(f"window {window} + 2 * margin_x {margin_x} + 1 > {PX}")
+    if 2 * max(margin_x, margin_y) + 2 > 65:
+        raise ValueError(f"margins {margin_x}/{margin_y} too large")
+    if H < py:
+        raise ValueError(f"level height {H} < py {py}")
+
+
+def _corner(v: torch.Tensor, margin: int, hi: int) -> torch.Tensor:
+    """clip(floor(v) - margin, 0, hi) as int64; the clamp comes after the
+    cast, so a non-finite v still lands in range."""
+    return torch.clamp(torch.floor(v).long() - margin, 0, hi)
+
+
+def _sample(img, iy, ix, ox, oy, w: int, max_off: tuple[int, int], live):
+    """(N, w, w) bilinear samples of img at rows iy + oy + r, cols
+    ix + ox + c: x blended first, then y, with hat weights. Offsets lie in
+    [0, max_off] (or are NaN); the tap after the last one has weight 0 and
+    is read clamped to the image. Dead slots come back zero."""
+    H, W = img.shape
+    ar = torch.arange(w, device=img.device)
+
+    def taps(o, hi):
+        a = torch.floor(o).long().clamp(0, hi)
+        af = a.to(torch.float32)
+        w0 = torch.clamp(1.0 - torch.abs(o - af), min=0.0)
+        w1 = torch.clamp(1.0 - torch.abs(o - (af + 1.0)), min=0.0)
+        return a, w0[:, None, None], w1[:, None, None]
+
+    ax, wx0, wx1 = taps(ox, max_off[0])
+    ay, wy0, wy1 = taps(oy, max_off[1])
+    r = (iy + ay)[:, None, None] + ar[None, :, None]
+    c = (ix + ax)[:, None, None] + ar[None, None, :]
+    r0, r1 = torch.clamp(r, max=H - 1), torch.clamp(r + 1, max=H - 1)
+    c0, c1 = torch.clamp(c, max=W - 1), torch.clamp(c + 1, max=W - 1)
+    top = wx0 * img[r0, c0] + wx1 * img[r0, c1]
+    bot = wx0 * img[r1, c0] + wx1 * img[r1, c1]
+    return torch.where(live[:, None, None], wy0 * top + wy1 * bot, 0.0)
+
+
+def lk_track_level_ref(
+    prev, gx, gy, curr, pos, guess, valid, *, window: int, py: int,
+    max_iters: int, eps: float, min_eig_threshold: float,
+    margin_x: int = 6, margin_y: int = 6,
+):
+    """Plain PyTorch version of the fused level; same arguments and
+    results as lk_track_level."""
+    H, W = prev.shape
+    w = window
+    half = (w - 1) / 2.0
+    Rx, Ry = float(2 * margin_x), float(2 * margin_y)
+    t_tl = pos - half
+    c_tl = pos + guess - half
+    t_iy = _corner(t_tl[:, 1], 0, H - py)
+    t_ix = _corner(t_tl[:, 0], 0, W - PX)
+    c_iy = _corner(c_tl[:, 1], margin_y, H - py)
+    c_ix = _corner(c_tl[:, 0], margin_x, W - PX)
+    t_ox = t_tl[:, 0] - t_ix.to(torch.float32)
+    t_oy = t_tl[:, 1] - t_iy.to(torch.float32)
+    o0x = c_tl[:, 0] - c_ix.to(torch.float32)
+    o0y = c_tl[:, 1] - c_iy.to(torch.float32)
+    t_in = (t_ox >= 0.0) & (t_ox <= _T_MAX) & (t_oy >= 0.0) & (t_oy <= _T_MAX)
+    t_ox = torch.clamp(t_ox, 0.0, _T_MAX)
+    t_oy = torch.clamp(t_oy, 0.0, _T_MAX)
+
+    t_box = (int(_T_MAX), int(_T_MAX))
+    T = _sample(prev, t_iy, t_ix, t_ox, t_oy, w, t_box, valid)
+    Tx = _sample(gx, t_iy, t_ix, t_ox, t_oy, w, t_box, valid)
+    Ty = _sample(gy, t_iy, t_ix, t_ox, t_oy, w, t_box, valid)
+
+    a11 = torch.sum(Tx * Tx, dim=(1, 2))
+    a12 = torch.sum(Tx * Ty, dim=(1, 2))
+    a22 = torch.sum(Ty * Ty, dim=(1, 2))
+    tr_half = (a11 + a22) * 0.5
+    det = a11 * a22 - a12 * a12
+    disc = torch.sqrt(torch.clamp(tr_half * tr_half - det, min=0.0))
+    min_eig = (tr_half - disc) / float(w * w)
+    inv_det = 1.0 / torch.where(det > 1e-12, det, 1.0)
+    i11 = a22 * inv_det
+    i12 = -a12 * inv_det
+    i22 = a11 * inv_det
+    eps2 = eps * eps
+
+    c_box = (2 * margin_x, 2 * margin_y)
+    ox, oy = o0x, o0y
+    conv = torch.zeros_like(ox)
+    for _ in range(max_iters):
+        in_patch = ((ox >= 0.0) & (ox <= Rx) & (oy >= 0.0) & (oy <= Ry)).to(torch.float32)
+        Iw = _sample(
+            curr, c_iy, c_ix, torch.clamp(ox, 0.0, Rx), torch.clamp(oy, 0.0, Ry),
+            w, c_box, valid,
+        )
+        diff = Iw - T
+        b1 = torch.sum(diff * Tx, dim=(1, 2))
+        b2 = torch.sum(diff * Ty, dim=(1, 2))
+        du = -(i11 * b1 + i12 * b2)
+        dv = -(i12 * b1 + i22 * b2)
+        active = (1.0 - conv) * in_patch
+        ox = ox + active * du
+        oy = oy + active * dv
+        small = (du * du + dv * dv < eps2).to(torch.float32)
+        conv = torch.clamp(conv + small + (1.0 - in_patch), max=1.0)
+
+    solvable = (min_eig > min_eig_threshold) & (det > 1e-12) & t_in & valid
+    in_fin = (ox >= -1.0) & (ox <= Rx + 1.0) & (oy >= -1.0) & (oy <= Ry + 1.0)
+    d = guess + torch.stack([ox - o0x, oy - o0y], dim=-1)
+    return d, min_eig, solvable, in_fin
+
+
+def lk_track_level(
+    prev: torch.Tensor,
+    gx: torch.Tensor,
+    gy: torch.Tensor,
+    curr: torch.Tensor,
+    pos: torch.Tensor,
+    guess: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    window: int,
+    py: int,
+    max_iters: int,
+    eps: float,
+    min_eig_threshold: float,
+    margin_x: int = 6,
+    margin_y: int = 6,
+):
+    """Run one fused LK level. Returns (d, min_eig, solvable, in_patch):
+    d (N, 2) is the updated flow (guess + iterations), the flags (N,) bool.
+
+    prev/gx/gy/curr: padded level images (see ops/klt.py); pos: (N, 2)
+    positions in padded level coordinates; guess: (N, 2) flow in; valid:
+    (N,) bool. margin_x/margin_y: the per-axis travel budget is 2*margin
+    px. Positions of features whose status ends False carry no meaning."""
+    kw = dict(window=window, py=py, margin_x=margin_x, margin_y=margin_y)
+    _check(prev, gx, gy, curr, pos, guess, valid, **kw)
+    if prev.device.type == "cpu":
+        return lk_track_level_ref(
+            prev, gx, gy, curr, pos, guess, valid, max_iters=max_iters, eps=eps,
+            min_eig_threshold=min_eig_threshold, **kw,
+        )
+    if prev.device.type != "cuda":
+        raise ValueError(f"unsupported device {prev.device}")
+    if window > 32:
+        raise ValueError(f"the CUDA kernel holds windows up to 32x32, got {window}")
+    lib = _build.load()
+    H, W = prev.shape
+    N = valid.shape[0]
+    imgs = [im.contiguous() for im in (prev, gx, gy, curr)]
+    pos_c, guess_c, valid_c = pos.contiguous(), guess.contiguous(), valid.contiguous()
+    out = torch.empty((N, 8), dtype=torch.float32, device=prev.device)
+    code = lib.svo_lk_level(
+        *(im.data_ptr() for im in imgs), H, W,
+        pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), N,
+        window, py, margin_x, margin_y, max_iters, eps * eps, min_eig_threshold,
+        out.data_ptr(), torch.cuda.current_stream(prev.device).cuda_stream,
+    )
+    _build.check(lib, code, "lk_level")
+    lk_track_level.launches += 1
+    return guess + out[:, 0:2], out[:, 2], out[:, 3] > 0.5, out[:, 4] > 0.5
+
+
+lk_track_level.launches = 0  # kernel launches since the last reset

@@ -142,13 +142,16 @@ def _replenish(
     frame_id: torch.Tensor,
     camera: Camera,
     cfg: Config,
+    lk_engine: str = "patches",
 ) -> tuple[FeatureSet, MapState]:
     # 1. detect with suppression around the current live features
     det_pos, _, det_valid = detect_mod.detect(left, feats.pos, feats.valid, cfg)
 
     # 2. stereo match left->right with KLT + vertical-disparity gate
     pyr_r = KltTracker.build_pyramid(right, cfg.stereo_klt.max_level)
-    sres = KltTracker.track(pyr_l, pyr_r, det_pos, det_valid, cfg.stereo_klt)
+    sres = KltTracker.track(
+        pyr_l, pyr_r, det_pos, det_valid, cfg.stereo_klt, engine=lk_engine
+    )
     y_ok = torch.abs(sres.pos[:, 1] - det_pos[:, 1]) < cfg.tracking.y_threshold
     s_valid = det_valid & sres.status & y_ok
 
@@ -189,13 +192,16 @@ def step_body(
     kf_mode: str = "dynamic",
     generator: torch.Generator | None = None,
     pnp_noise: torch.Tensor | None = None,
+    lk_engine: str = "patches",
 ) -> VoState:
     """One full frame step: track -> PnP -> replenish.
 
     kf_mode: "dynamic" (the reference's data-dependent keyframe rule plus
     the max-interval trigger), "never" (track only) or "always"
     (unconditional replenish). The PnP sampling noise is `pnp_noise`
-    ((num_hypotheses, N) Gumbel) if given, else drawn from `generator`."""
+    ((num_hypotheses, N) Gumbel) if given, else drawn from `generator`.
+    lk_engine: the KLT engine of all three tracker calls, "patches" or
+    "fused" (ops/klt.py)."""
     if kf_mode not in ("dynamic", "never", "always"):
         raise ValueError(f"kf_mode {kf_mode!r}")
     _check_cfg(cfg)
@@ -249,7 +255,7 @@ def step_body(
 
     tres = KltTracker.track(
         state.prev_pyramid, pyr_l, track_src, state.features.valid,
-        cfg.temporal_klt, init_flow=init_flow,
+        cfg.temporal_klt, init_flow=init_flow, engine=lk_engine,
     )
     t_status = state.features.valid & tres.status
     if cfg.tracking.fb_check:
@@ -257,7 +263,7 @@ def step_body(
         fb_params = dataclasses.replace(cfg.temporal_klt, max_level=0, max_iters=8)
         bres = KltTracker.track(
             pyr_l, state.prev_pyramid, tres.pos, t_status,
-            fb_params, init_flow=track_src - tres.pos,
+            fb_params, init_flow=track_src - tres.pos, engine=lk_engine,
         )
         fb_err2 = torch.sum((bres.pos - track_src) ** 2, dim=-1)
         t_status = t_status & bres.status & (fb_err2 < cfg.tracking.fb_threshold ** 2)
@@ -329,14 +335,18 @@ def step_body(
 
     # --- keyframe replenishment ---
     if kf_mode == "always":
-        feats, mp = _replenish(feats, mp, left, pyr_l, right, pose, fid, camera, cfg)
+        feats, mp = _replenish(
+            feats, mp, left, pyr_l, right, pose, fid, camera, cfg, lk_engine
+        )
     elif kf_mode == "dynamic":
         # The one host round trip per frame, and only in this mode (svo_tpu
         # takes a lax.cond on device here); the cadenced chunk step never
         # comes here.
         kf_on_host = bool(is_kf)
         if kf_on_host:
-            feats, mp = _replenish(feats, mp, left, pyr_l, right, pose, fid, camera, cfg)
+            feats, mp = _replenish(
+                feats, mp, left, pyr_l, right, pose, fid, camera, cfg, lk_engine
+            )
 
     poses = _scatter_drop(state.poses, fid.reshape(1), pose[None])
     kf_flags = _scatter_drop(state.kf_flags, fid.reshape(1), is_kf.reshape(1))
@@ -373,7 +383,9 @@ def step_body(
     )
 
 
-def make_cadenced_chunk_step(camera: Camera, cfg: Config, chunk: int, cadence: int):
+def make_cadenced_chunk_step(
+    camera: Camera, cfg: Config, chunk: int, cadence: int, lk_engine: str = "patches"
+):
     """Multi-frame step with a STATIC keyframe cadence: each group of
     `cadence` frames starts with one unconditional-replenish step
     (kf_mode="always") followed by cadence-1 track-only steps
@@ -390,14 +402,14 @@ def make_cadenced_chunk_step(camera: Camera, cfg: Config, chunk: int, cadence: i
             state = step_body(
                 state, l.to(torch.float32), r.to(torch.float32), camera, cfg,
                 kf_mode="always" if i % cadence == 0 else "never",
-                generator=generator,
+                generator=generator, lk_engine=lk_engine,
             )
         return state
 
     return run_chunk
 
 
-def make_bootstrap(camera: Camera, cfg: Config):
+def make_bootstrap(camera: Camera, cfg: Config, lk_engine: str = "patches"):
     """Bootstrap: frame 0 is always a keyframe — detect, stereo-match,
     triangulate at the identity pose. Returns (left, right) -> VoState."""
     _check_cfg(cfg)
@@ -411,7 +423,7 @@ def make_bootstrap(camera: Camera, cfg: Config):
         zero_i = torch.zeros((), dtype=torch.int32, device=dev)
         feats, mp = _replenish(
             FeatureSet.empty(N, dev), MapState.empty(cfg, dev),
-            left, pyr_l, right, pose0, zero_i, camera, cfg,
+            left, pyr_l, right, pose0, zero_i, camera, cfg, lk_engine,
         )
         metrics0 = torch.zeros((F, 5), dtype=torch.float32, device=dev)
         metrics0[0, 2] = feats.count().to(torch.float32)

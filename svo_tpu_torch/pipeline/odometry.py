@@ -16,6 +16,7 @@ import torch
 
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry.camera import Camera
+from svo_tpu_torch.ops.klt import ENGINES
 from svo_tpu_torch.pipeline import frontend
 from svo_tpu_torch.pipeline.state import VoState
 
@@ -48,28 +49,33 @@ class StereoVO:
         chunk: int = 0,
         kf_cadence: int = 0,
         device: str | torch.device = "cpu",
+        lk_engine: str = "patches",
     ):
         """chunk > 0 enables run_chunked, which replenishes every
         `kf_cadence` frames (frontend.make_cadenced_chunk_step); svo_tpu's
         chunked step with the data-dependent keyframe rule (kf_cadence=0)
         is not ported. process() and run() use the data-dependent rule.
         The PnP sampling draws from a torch.Generator on `device` seeded
-        with `seed`."""
+        with `seed`. lk_engine picks the KLT engine of every tracker call:
+        "patches" (svo_tpu's default) or "fused" (ops/klt.py)."""
+        if lk_engine not in ENGINES:
+            raise ValueError(f"lk_engine {lk_engine!r} is not one of {ENGINES}")
         self.cfg = config
         self.device = torch.device(device)
         self.camera = camera.to(self.device)
         self.seed = seed
         self.chunk = chunk
         self.kf_cadence = kf_cadence
+        self.lk_engine = lk_engine
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self._bootstrap = frontend.make_bootstrap(self.camera, config)
+        self._bootstrap = frontend.make_bootstrap(self.camera, config, lk_engine)
         self._chunk_step = None
         if chunk:
             if not kf_cadence:
                 raise ValueError("run_chunked needs kf_cadence > 0")
             self._chunk_step = frontend.make_cadenced_chunk_step(
-                self.camera, config, chunk, kf_cadence
+                self.camera, config, chunk, kf_cadence, lk_engine
             )
         self.state: VoState | None = None
 
@@ -95,7 +101,7 @@ class StereoVO:
             raise RuntimeError("call start() first")
         self.state = frontend.step_body(
             self.state, self._to_device(left), self._to_device(right),
-            self.camera, self.cfg, generator=self.generator,
+            self.camera, self.cfg, generator=self.generator, lk_engine=self.lk_engine,
         )
 
     def run(

@@ -1,7 +1,7 @@
 """The port runs without jax, PyYAML and svo_tpu.
 
 A fresh interpreter with those three blocked in sys.modules imports every
-module of svo_tpu_torch and chip_smoke.py, and runs detect_fast on the
+module of svo_tpu_torch (both kernel wrappers among them) and chip_smoke.py, and runs detect_fast on the
 CPU; chip_smoke.main() must refuse to run without a CUDA device, with a
 non-zero code and nothing on stdout.
 """
@@ -23,6 +23,7 @@ import svo_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(svo_tpu_torch.__path__, "svo_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused"} <= set(mods)
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.io.synthetic import SyntheticSequence

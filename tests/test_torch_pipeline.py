@@ -185,14 +185,16 @@ def test_alloc_and_record_drop_semantics():
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
-def test_cadenced_step_makes_no_host_sync(seq, monkeypatch):
+@pytest.mark.parametrize("lk_engine", ["patches", "fused"])
+def test_cadenced_step_makes_no_host_sync(seq, monkeypatch, lk_engine):
     """The cadenced chunk step reads no tensor value on the host (svo_tpu
     branches on none either): any bool()/int()/float()/.item() on a tensor
-    inside it fails the test."""
+    inside it fails the test. Both KLT engines, so the fused level's
+    wrapper is held to it too."""
     frames = list(seq)[:7]
     _, cam_t = _cams(seq)
     _, cfg_t = _cfgs()
-    vo = TStereoVO(cfg_t, cam_t, chunk=6, kf_cadence=6)
+    vo = TStereoVO(cfg_t, cam_t, chunk=6, kf_cadence=6, lk_engine=lk_engine)
     vo.start(frames[0][1], frames[0][2])
     lefts = torch.from_numpy(np.stack([f[1] for f in frames[1:]]).astype(np.uint8))
     rights = torch.from_numpy(np.stack([f[2] for f in frames[1:]]).astype(np.uint8))
