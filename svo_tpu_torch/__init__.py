@@ -1,11 +1,12 @@
 """svo_tpu_torch — the stereo visual-odometry front-end of svo_tpu, ported to
 PyTorch and CUDA.
 
-The package mirrors svo_tpu's layout (ops/, geometry/, pipeline/, io/,
-eval/) so each module's counterpart is easy to find; svo_tpu stays the
-reference the port is tested against. It imports torch and never jax or
-svo_tpu, so it runs on a machine without jax. The one hand-written kernel
-(csrc/klt_patches.cu) is built with nvcc at first use (see _build.py).
+The package mirrors svo_tpu's layout (ops/, geometry/, pipeline/,
+parallel/, io/, eval/) so each module's counterpart is easy to find;
+svo_tpu stays the reference the port is tested against. It imports torch
+and never jax or svo_tpu, so it runs on a machine without jax. The
+hand-written kernels (csrc/*.cu) are built with nvcc at first use (see
+_build.py).
 """
 
 __version__ = "0.1.0"

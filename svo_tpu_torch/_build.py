@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-The kernels in csrc/*.cu (KLT patch extraction, the fused LK level) are
-compiled with nvcc for Hopper (sm_90a) into one shared library with a
-plain C interface, loaded with ctypes. The library
-goes to build/svo_tpu_torch/ at the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-the existing library. Nothing is built at import: the first call that
-launches a kernel builds.
+The kernels in csrc/*.cu (KLT patch extraction, the fused LK level, the
+capability probes) are compiled with nvcc for Hopper (sm_90a), one nvcc
+process per source and all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes. The library goes to
+build/svo_tpu_torch/ at the repository root, named by a hash of the sources
+and flags, so an edited source rebuilds and an unchanged one loads the
+existing library. Nothing is built at import: the first call that launches
+a kernel builds.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "svo_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -59,17 +60,29 @@ def library_path() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(srcs, objs)]
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for c in cmds
+        ]
+        results = [(c, p, *p.communicate()) for c, p in zip(cmds, procs)]
+        lib = str(Path(tmp) / "lib.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        for cmd, proc, stdout, stderr in results:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}\n{stderr}"
+                )
+        done = subprocess.run(link, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({done.returncode}): {' '.join(link)}\n"
+                f"{done.stdout}\n{done.stderr}"
+            )
+        os.replace(lib, out)
     return out
 
 
@@ -80,15 +93,17 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.svo_klt_patches.argtypes = [
-            p, p, p, p, i, i, p, p, i, i, i, p, p, p, p, p,
+            p, p, p, p, i, i, i, p, p, i, i, i, p, p, p, p, p,
         ]
         lib.svo_klt_patches.restype = i
         # eps2 and min_eig_threshold are C floats: without c_float ctypes
         # refuses a Python float (or, under c_int, would cut it)
         lib.svo_lk_level.argtypes = [
-            p, p, p, p, i, i, p, p, p, i, i, i, i, i, i, f, f, p, p,
+            p, p, p, p, i, i, i, p, p, p, i, i, i, i, i, i, f, f, p, p,
         ]
         lib.svo_lk_level.restype = i
+        lib.svo_probe.argtypes = [i, p, p, p, i, p]
+        lib.svo_probe.restype = i
         lib.svo_cuda_error_string.argtypes = [i]
         lib.svo_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -30,6 +30,12 @@
 // dead slot reads nothing. Corners are clamped after the float->int cast,
 // so a non-finite position or guess cannot index out of range.
 //
+// The stream axis (the TPU kernel's batched form, lk_pallas.py _batched,
+// grid (S, N/8) over (S, H, W) images) is part of the same launch: the
+// grid covers S*N features, and a warp's feature index n gives its stream
+// n / N and so the base of its four images, img + (n / N) * H * W.
+// Features of two streams may share a block. One stream is S = 1.
+//
 // The TPU kernel's row-folded 2-D scratch, selector matmuls, lane rolls and
 // (bf, 128) loop carries were constraints of its compiler and have no
 // counterpart here. Launches on the caller's stream, allocates nothing,
@@ -48,15 +54,15 @@ constexpr int kMaxWarps = 4;        // features per block
 constexpr int kSmemBudget = 48 * 1024;
 
 struct LevelArgs {
-  const float* prev;
+  const float* prev;      // (S, H, W), like gx, gy, curr
   const float* gx;
   const float* gy;
   const float* curr;
-  const float* pos;       // (N, 2) x, y in padded level coordinates
-  const float* guess;     // (N, 2)
-  const uint8_t* valid;   // (N,) bool
-  float* out;             // (N, 8)
-  int H, W, N, w, py, mx, my, max_iters;
+  const float* pos;       // (S*N, 2) x, y in padded level coordinates
+  const float* guess;     // (S*N, 2)
+  const uint8_t* valid;   // (S*N,) bool
+  float* out;             // (S*N, 8)
+  int H, W, N, total, w, py, mx, my, max_iters;  // total = S * N
   float eps2, min_eig_threshold;
   int warp_floats;        // shared floats per feature
 };
@@ -113,7 +119,8 @@ lk_level_kernel(const LevelArgs a) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (n >= a.N) return;
+  if (n >= a.total) return;
+  const size_t img = static_cast<size_t>(n / a.N) * a.H * a.W;  // the stream's image
 
   const int w = a.w, ww = w * w;
   const int tw = w + 3;                // template window side: 2 + 1 taps
@@ -147,13 +154,13 @@ lk_level_kernel(const LevelArgs a) {
     for (int i = lane; i < tw * tw; i += 32) {
       const int r = i / tw, c = i - r * tw;
       const size_t g = static_cast<size_t>(min(t_iy + r, a.H - 1)) * a.W + min(t_ix + c, a.W - 1);
-      s_t[i] = a.prev[g];
-      s_gx[i] = a.gx[g];
-      s_gy[i] = a.gy[g];
+      s_t[i] = a.prev[img + g];
+      s_gx[i] = a.gx[img + g];
+      s_gy[i] = a.gy[img + g];
     }
     for (int i = lane; i < ch * cw; i += 32) {
       const int r = i / cw, c = i - r * cw;
-      s_c[i] = a.curr[static_cast<size_t>(min(c_iy + r, a.H - 1)) * a.W + min(c_ix + c, a.W - 1)];
+      s_c[i] = a.curr[img + static_cast<size_t>(min(c_iy + r, a.H - 1)) * a.W + min(c_ix + c, a.W - 1)];
     }
     __syncwarp();
 
@@ -236,7 +243,7 @@ template <int K>
 cudaError_t launch(const LevelArgs& a, cudaStream_t stream) {
   const int bytes = a.warp_floats * static_cast<int>(sizeof(float));
   const int warps = std::max(1, std::min(kMaxWarps, kSmemBudget / bytes));
-  const int blocks = (a.N + warps - 1) / warps;
+  const int blocks = (a.total + warps - 1) / warps;
   lk_level_kernel<K><<<blocks, warps * 32, warps * bytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -245,10 +252,10 @@ cudaError_t launch(const LevelArgs& a, cudaStream_t stream) {
 
 extern "C" int svo_lk_level(
     const void* prev, const void* gx, const void* gy, const void* curr,
-    int H, int W, const void* pos, const void* guess, const void* valid,
-    int N, int window, int py, int margin_x, int margin_y, int max_iters,
+    int S, int H, int W, const void* pos, const void* guess,
+    const void* valid, int N, int window, int py, int margin_x, int margin_y, int max_iters,
     float eps2, float min_eig_threshold, void* out, void* stream) {
-  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  if (S <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
   if (window < 1 || window > 32 || margin_x < 0 || margin_y < 0 || H < py ||
       W < kPX || window + 2 * margin_x + 1 > kPX) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -265,6 +272,7 @@ extern "C" int svo_lk_level(
   a.H = H;
   a.W = W;
   a.N = N;
+  a.total = S * N;
   a.w = window;
   a.py = py;
   a.mx = margin_x;

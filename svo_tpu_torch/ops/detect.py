@@ -19,7 +19,8 @@ def detect_fast(
     suppress: torch.Tensor | None,
     cfg: Config,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-scale FAST detection -> (pos (D,2), score (D,), valid (D,)).
+    """Single-scale FAST detection -> (pos (D,2), score (D,), valid (D,));
+    an (S, H, W) stack of images detects per stream, (S, D, ...).
 
     Detects at FastParams.min_threshold and splits candidates into a strong
     tier (margin above `threshold`) and a weak tier that only claims
@@ -52,6 +53,6 @@ def detect(
             "A11); use Config(use_orb=False)"
         )
     suppress = nms.suppression_mask(
-        tuple(img.shape), prev_pos, prev_valid, cfg.mask_halfwidth
+        tuple(img.shape[-2:]), prev_pos, prev_valid, cfg.mask_halfwidth
     )
     return detect_fast(img, float(cfg.fast_params.threshold), suppress, cfg)

@@ -22,15 +22,15 @@ ARC = 9  # FAST-9: at least 9 contiguous ring pixels brighter/darker
 
 
 def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
-    """(H, W) f32 image in [0, 255] -> (H, W) score map; score > 0 exactly
-    where the FAST-9 test at `threshold` passes (the margin of the best
-    contiguous arc above the threshold). A 3-pixel border is zero."""
-    H, W = img.shape
+    """(..., H, W) f32 image in [0, 255] -> (..., H, W) score map; score >
+    0 exactly where the FAST-9 test at `threshold` passes (the margin of the
+    best contiguous arc above the threshold). A 3-pixel border is zero."""
+    H, W = img.shape[-2:]
     d = torch.stack(
-        [torch.roll(img, (-dy, -dx), dims=(0, 1)) - img for dx, dy in RING]
-    )  # (16, H, W): ring minus centre
+        [torch.roll(img, (-dy, -dx), dims=(-2, -1)) - img for dx, dy in RING]
+    )  # (16, ..., H, W): ring minus centre
     d_ext = torch.cat([d, d[: ARC - 1]], dim=0)  # circular windows
-    bright_best = torch.full((H, W), -torch.inf, dtype=img.dtype, device=img.device)
+    bright_best = torch.full_like(img, -torch.inf)
     dark_best = torch.full_like(bright_best, -torch.inf)
     for s in range(16):
         w = d_ext[s : s + ARC]

@@ -19,6 +19,11 @@ One difference to the CPU path of svo_tpu: that path slices dead slots'
 patches like live ones, while the extraction kernel (here, and svo_tpu's
 TPU kernel) zeroes them, so a dead feature's position stops moving. Only
 positions whose status is True carry meaning in either.
+
+The stream axis: every function takes leading axes before the feature axis
+(pos (..., N, 2), valid (..., N), pyramid levels (..., H, W)), so S streams
+are tracked by the same ops as one, and each extraction or fused level is
+one kernel launch for all of them.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 from svo_tpu_torch.config import KltParams
 from svo_tpu_torch.ops import lk_fused
 from svo_tpu_torch.ops.klt_patches import extract_klt_patches
-from svo_tpu_torch.ops.pyramid import klt_pyramid, scharr_gradients
+from svo_tpu_torch.ops.pyramid import klt_pyramid, pad_replicate, scharr_gradients
 
 
 class KltResult(NamedTuple):
@@ -85,7 +90,7 @@ def _fused_level_ok(H: int, W: int, py: int, window: int, margin_x: int) -> bool
 
 
 def _inside(pt: torch.Tensor, W: int, H: int) -> torch.Tensor:
-    return (pt[:, 0] >= 0) & (pt[:, 0] < W) & (pt[:, 1] >= 0) & (pt[:, 1] < H)
+    return (pt[..., 0] >= 0) & (pt[..., 0] < W) & (pt[..., 1] >= 0) & (pt[..., 1] < H)
 
 
 def _corners(pos, guess, H: int, W: int, py: int, px: int, w: int, mx: int):
@@ -98,11 +103,11 @@ def _corners(pos, guess, H: int, W: int, py: int, px: int, w: int, mx: int):
 
     def corner(p):
         y0 = torch.clamp(
-            torch.floor(p[:, 1]).to(torch.int32) - hw - _MY, 0, max(H - py, 0)
+            torch.floor(p[..., 1]).to(torch.int32) - hw - _MY, 0, max(H - py, 0)
         )
         y0 = torch.div(y0, 8, rounding_mode="floor") * 8
         x0 = torch.clamp(
-            torch.floor(p[:, 0]).to(torch.int32) - hw - mx, 0, max(W - px, 0)
+            torch.floor(p[..., 0]).to(torch.int32) - hw - mx, 0, max(W - px, 0)
         )
         return y0, x0
 
@@ -112,28 +117,30 @@ def _corners(pos, guess, H: int, W: int, py: int, px: int, w: int, mx: int):
 
 
 def _blend(patches: torch.Tensor, offset: torch.Tensor, window: int) -> torch.Tensor:
-    """Bilinear sample of (N, window, window) at fractional offset (N, 2)
-    (x, y) inside (N, PY, PX) patches; the offset must lie in
-    [0, P - window - 1] per axis. Rows blend first, then columns, as
+    """Bilinear sample of (..., N, window, window) at fractional offset
+    (..., N, 2) (x, y) inside (..., N, PY, PX) patches; the offset must lie
+    in [0, P - window - 1] per axis. Rows blend first, then columns, as
     svo_tpu's two one-hot contractions S_y @ patch @ S_x^T; this gathers the
     four taps instead of multiplying by one-hot matrices."""
-    N, PY, PX = patches.shape
+    PY, PX = patches.shape[-2:]
     w = window
-    ox, oy = offset[:, 0], offset[:, 1]
+    ox, oy = offset[..., 0], offset[..., 1]
     # clamp after the cast as well: a NaN offset must not index out of range
     ix = torch.floor(ox).long().clamp(0, PX - w - 1)
     iy = torch.floor(oy).long().clamp(0, PY - w - 1)
-    fx = (ox - ix)[:, None, None]
-    fy = (oy - iy)[:, None, None]
+    fx = (ox - ix)[..., None, None]
+    fy = (oy - iy)[..., None, None]
     ar = torch.arange(w, device=patches.device)
     base = (
-        torch.arange(N, device=patches.device)[:, None, None] * (PY * PX)
-        + (iy[:, None, None] + ar[None, :, None]) * PX
-        + (ix[:, None, None] + ar[None, None, :])
-    )
-    flat = patches.reshape(-1)
-    p00, p01 = flat[base], flat[base + 1]
-    p10, p11 = flat[base + PX], flat[base + PX + 1]
+        (iy[..., None, None] + ar[:, None]) * PX + (ix[..., None, None] + ar[None, :])
+    ).flatten(-2)                        # (..., N, w*w) into each feature's patch
+    flat = patches.flatten(-2)           # (..., N, PY*PX)
+
+    def tap(shift: int):
+        return torch.gather(flat, -1, base + shift).unflatten(-1, (w, w))
+
+    p00, p01 = tap(0), tap(1)
+    p10, p11 = tap(PX), tap(PX + 1)
     left = p00 * (1.0 - fy) + p10 * fy
     right = p01 * (1.0 - fy) + p11 * fy
     return left * (1.0 - fx) + right * fx
@@ -141,16 +148,16 @@ def _blend(patches: torch.Tensor, offset: torch.Tensor, window: int) -> torch.Te
 
 def _in_box(off: torch.Tensor, max_x: float, max_y: float, lo: float = 0.0):
     return (
-        (off[:, 0] >= lo)
-        & (off[:, 0] <= max_x - lo)
-        & (off[:, 1] >= lo)
-        & (off[:, 1] <= max_y - lo)
+        (off[..., 0] >= lo)
+        & (off[..., 0] <= max_x - lo)
+        & (off[..., 1] >= lo)
+        & (off[..., 1] <= max_y - lo)
     )
 
 
 def _clip_off(off: torch.Tensor, max_x: float, max_y: float) -> torch.Tensor:
     return torch.stack(
-        [torch.clamp(off[:, 0], 0.0, max_x), torch.clamp(off[:, 1], 0.0, max_y)],
+        [torch.clamp(off[..., 0], 0.0, max_x), torch.clamp(off[..., 1], 0.0, max_y)],
         dim=-1,
     )
 
@@ -163,7 +170,6 @@ def _track_impl(
 ) -> KltResult:
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} is not one of {ENGINES}")
-    N = pos.shape[0]
     w = window
     half = (w - 1) / 2.0
     px = _patch_cols(w, margin_x)
@@ -173,7 +179,7 @@ def _track_impl(
 
     guess = init / (2.0 ** (max_level + 1))  # doubled entering the top level
     status = valid
-    min_eig_out = torch.zeros((N,), dtype=torch.float32, device=pos.device)
+    min_eig_out = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)
 
     for level in range(max_level, -1, -1):
         if level_iters is not None:
@@ -183,7 +189,7 @@ def _track_impl(
         img_prev = prev_levels[level]
         img_curr = curr_levels[level]
         gx, gy = prev_grad_levels[level]
-        H, W = img_prev.shape          # padded dims (see build_pyramid)
+        H, W = img_prev.shape[-2:]     # padded dims (see build_pyramid)
         Ht, Wt = H - 2 * _PAD_Y, W - 2 * _PAD_X  # true level dims
 
         p_lvl = pos / (2.0 ** level)
@@ -194,7 +200,7 @@ def _track_impl(
         if py == 0 or W < px + 1:
             continue
         max_off_y = py - w - 1.0
-        p_pad = torch.stack([p_lvl[:, 0] + _PAD_X, p_lvl[:, 1] + _PAD_Y], dim=-1)
+        p_pad = torch.stack([p_lvl[..., 0] + _PAD_X, p_lvl[..., 1] + _PAD_Y], dim=-1)
 
         if engine == "fused" and _fused_level_ok(H, W, py, w, margin_x):
             # the whole level in one launch; a level that fails the rule
@@ -229,9 +235,9 @@ def _track_impl(
         Ty = _blend(gy_patch, t_off_cl, w)
 
         # 2x2 normal matrix, once per level (like cv2)
-        a11 = torch.sum(Tx * Tx, dim=(1, 2))
-        a12 = torch.sum(Tx * Ty, dim=(1, 2))
-        a22 = torch.sum(Ty * Ty, dim=(1, 2))
+        a11 = torch.sum(Tx * Tx, dim=(-2, -1))
+        a12 = torch.sum(Tx * Ty, dim=(-2, -1))
+        a22 = torch.sum(Ty * Ty, dim=(-2, -1))
         tr_half = (a11 + a22) * 0.5
         disc = torch.sqrt(torch.clamp(tr_half * tr_half - (a11 * a22 - a12 * a12), min=0.0))
         min_eig = (tr_half - disc) / win_area
@@ -249,18 +255,18 @@ def _track_impl(
 
         # iterate: current window at p_lvl + d, converged features frozen
         d = guess
-        conv = torch.zeros((N,), dtype=torch.bool, device=pos.device)
+        conv = torch.zeros(pos.shape[:-1], dtype=torch.bool, device=pos.device)
         for _ in range(iters_l):
             c_off = p_pad + d - half - c_base
             in_patch = _in_box(c_off, max_off_x, max_off_y)
             Iw = _blend(c_patch, _clip_off(c_off, max_off_x, max_off_y), w)
             diff = Iw - T
-            b1 = torch.sum(diff * Tx, dim=(1, 2))
-            b2 = torch.sum(diff * Ty, dim=(1, 2))
+            b1 = torch.sum(diff * Tx, dim=(-2, -1))
+            b2 = torch.sum(diff * Ty, dim=(-2, -1))
             du = -(i11 * b1 + i12 * b2)
             dv = -(i12 * b1 + i22 * b2)
             active = (~conv) & in_patch
-            d = torch.where(active[:, None], d + torch.stack([du, dv], dim=-1), d)
+            d = torch.where(active[..., None], d + torch.stack([du, dv], dim=-1), d)
             conv = conv | (du * du + dv * dv < eps2) | (~in_patch)
 
         # lost if the final window left the patch (~left the search region)
@@ -271,13 +277,13 @@ def _track_impl(
 
     new_pos = pos + guess
     # the final position must lie inside the level-0 image (cv2 kills these)
-    H0 = prev_levels[0].shape[0] - 2 * _PAD_Y
-    W0 = prev_levels[0].shape[1] - 2 * _PAD_X
+    H0 = prev_levels[0].shape[-2] - 2 * _PAD_Y
+    W0 = prev_levels[0].shape[-1] - 2 * _PAD_X
     inside0 = (
-        (new_pos[:, 0] >= 0)
-        & (new_pos[:, 0] <= W0 - 1)
-        & (new_pos[:, 1] >= 0)
-        & (new_pos[:, 1] <= H0 - 1)
+        (new_pos[..., 0] >= 0)
+        & (new_pos[..., 0] <= W0 - 1)
+        & (new_pos[..., 1] >= 0)
+        & (new_pos[..., 1] <= H0 - 1)
     )
     return KltResult(pos=new_pos, status=status & inside0, err=min_eig_out)
 
@@ -288,13 +294,9 @@ class KltTracker:
 
     @staticmethod
     def build_pyramid(img: torch.Tensor, max_level: int):
-        """((levels...), ((gx, gy)...)) of the edge-padded pyramid."""
-        levels = [
-            torch.nn.functional.pad(
-                l[None, None], (_PAD_X, _PAD_X, _PAD_Y, _PAD_Y), mode="replicate"
-            )[0, 0]
-            for l in klt_pyramid(img, max_level)
-        ]
+        """((levels...), ((gx, gy)...)) of the edge-padded pyramid of an
+        (H, W) image or an (S, H, W) stack."""
+        levels = [pad_replicate(l, _PAD_Y, _PAD_X) for l in klt_pyramid(img, max_level)]
         grads = [scharr_gradients(l) for l in levels]
         return tuple(levels), tuple(grads)
 
@@ -309,7 +311,8 @@ class KltTracker:
         engine: str = "patches",
     ) -> KltResult:
         """Track (N, 2) features `pos` (mask `valid`) from prev to curr,
-        optionally seeded with an (N, 2) level-0 displacement. engine:
+        optionally seeded with an (N, 2) level-0 displacement; with
+        pyramids of (S, H, W) stacks, pos is (S, N, 2) and valid (S, N). engine:
         "patches" (svo_tpu's default) or "fused" (see the module doc)."""
         prev_levels, prev_grads = prev_pyr
         curr_levels, _ = curr_pyr

@@ -10,6 +10,11 @@ Contract (that of the TPU kernel): for each of N features, copy the
 (py, px) windows of prev, gx and gy at (ty0, tx0) and of curr at
 (cy0, cx0); each corner is clamped to [0, H-py] x [0, W-px] as
 jax.lax.dynamic_slice clamps; slots with valid == False come back zeroed.
+
+The stream axis: images (S, H, W) with corners and valid (S, N) give
+(S, N, py, px) patches, stream s cut from image s, in ONE launch (the TPU
+kernel's batched rule, klt_pallas.py::_extract_batched). Images (H, W)
+with (N,) corners are one stream.
 """
 
 from __future__ import annotations
@@ -17,22 +22,30 @@ from __future__ import annotations
 import torch
 
 from svo_tpu_torch import _build
+from svo_tpu_torch.ops.index import gather_hw
 
 
 def _check(imgs, corners, valid, py: int, px: int) -> None:
-    H, W = imgs[0].shape
+    shape = tuple(imgs[0].shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"images must be (H, W) or (S, H, W), got {shape}")
+    H, W = shape[-2:]
     for im in imgs:
-        if im.dtype != torch.float32 or im.dim() != 2 or tuple(im.shape) != (H, W):
+        if im.dtype != torch.float32 or tuple(im.shape) != shape:
             raise ValueError(
-                f"images must be four (H, W) float32 tensors of one shape, got "
-                f"{[(tuple(i.shape), i.dtype) for i in imgs]}"
+                f"images must be four float32 tensors of one shape (H, W) or "
+                f"(S, H, W), got {[(tuple(i.shape), i.dtype) for i in imgs]}"
             )
         if im.device != imgs[0].device:
             raise ValueError("images lie on different devices")
         if not im.is_contiguous():
             raise ValueError("images must be contiguous")
-    N = valid.shape[0]
-    if tuple(corners.shape) != (N, 4) or valid.dim() != 1:
+    if valid.dim() != len(shape) - 1 or tuple(valid.shape[:-1]) != shape[:-2]:
+        raise ValueError(
+            f"valid {tuple(valid.shape)} does not match images {shape}: (N,) "
+            f"for (H, W) images, (S, N) for (S, H, W)"
+        )
+    if tuple(corners.shape) != tuple(valid.shape) + (4,):
         raise ValueError(f"corners {tuple(corners.shape)} / valid {tuple(valid.shape)}")
     if not (0 < py <= H and 0 < px <= W):
         raise ValueError(f"patch {py}x{px} does not fit the {H}x{W} image")
@@ -41,17 +54,18 @@ def _check(imgs, corners, valid, py: int, px: int) -> None:
 def extract_klt_patches_ref(
     prev, gx, gy, curr, ty0, tx0, cy0, cx0, valid, py: int, px: int
 ):
-    """Plain PyTorch version: a gather of the same clamped windows."""
-    H, W = prev.shape
+    """Plain PyTorch version: a gather of the same clamped windows, with
+    the same optional stream axis."""
+    H, W = prev.shape[-2:]
     dev = prev.device
-    rows = torch.arange(py, device=dev)
-    cols = torch.arange(px, device=dev)
-    live = valid.to(torch.bool)[:, None, None]
+    rows = torch.arange(py, device=dev)[:, None]
+    cols = torch.arange(px, device=dev)[None, :]
+    live = valid.to(torch.bool)[..., None, None]
 
     def windows(img, y0, x0):
-        y0 = torch.clamp(y0.long(), 0, H - py)
-        x0 = torch.clamp(x0.long(), 0, W - px)
-        win = img[(y0[:, None] + rows)[:, :, None], (x0[:, None] + cols)[:, None, :]]
+        y0 = torch.clamp(y0.long(), 0, H - py)[..., None, None]
+        x0 = torch.clamp(x0.long(), 0, W - px)[..., None, None]
+        win = gather_hw(img, y0 + rows, x0 + cols)
         return torch.where(live, win, 0.0)
 
     return (
@@ -76,7 +90,9 @@ def extract_klt_patches(
     px: int,
 ):
     """Extract (N, py, px) patches: prev/gx/gy at (ty0, tx0), curr at
-    (cy0, cx0). Corners are (N,) integer tensors, valid (N,) bool."""
+    (cy0, cx0). Corners are (N,) integer tensors, valid (N,) bool; with
+    (S, H, W) images they are (S, N) and the patches (S, N, py, px), from
+    one launch whatever S is."""
     imgs = (prev, gx, gy, curr)
     corners = torch.stack([ty0, tx0, cy0, cx0], dim=-1).to(torch.int32).contiguous()
     _check(imgs, corners, valid, py, px)
@@ -87,12 +103,16 @@ def extract_klt_patches(
     if corners.device != prev.device or valid.device != prev.device:
         raise ValueError("corners and valid must lie on the images' device")
     lib = _build.load()
-    H, W = prev.shape
-    N = valid.shape[0]
+    H, W = prev.shape[-2:]
+    S = prev.shape[0] if prev.dim() == 3 else 1
+    N = valid.shape[-1]
     v = valid.to(torch.uint8).contiguous()
-    outs = [torch.empty((N, py, px), dtype=torch.float32, device=prev.device) for _ in range(4)]
+    outs = [
+        torch.empty(tuple(valid.shape) + (py, px), dtype=torch.float32, device=prev.device)
+        for _ in range(4)
+    ]
     code = lib.svo_klt_patches(
-        *(im.data_ptr() for im in imgs), H, W, corners.data_ptr(), v.data_ptr(),
+        *(im.data_ptr() for im in imgs), S, H, W, corners.data_ptr(), v.data_ptr(),
         N, py, px, *(o.data_ptr() for o in outs),
         torch.cuda.current_stream(prev.device).cuda_stream,
     )

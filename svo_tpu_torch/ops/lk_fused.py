@@ -24,6 +24,11 @@ The geometry is the TPU kernel's, not that of the patch path in ops/klt.py:
   min_eig is 0 and it is not solvable.
 
 The result d is relative to the guess as in svo_tpu: d = guess + (of - o0).
+
+The stream axis: images (S, H, W) with pos/guess (S, N, 2) and valid (S, N)
+give d (S, N, 2) and (S, N) flags from ONE launch over S*N features (the
+TPU kernel's batched rule, lk_pallas.py::_batched). Images (H, W) with
+(N, 2) positions are one stream.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from svo_tpu_torch import _build
+from svo_tpu_torch.ops.index import gather_hw
 
 PX = 64      # lk_pallas._PX: the column budget the corners are clipped by
 _T_MAX = 2.0  # lk_pallas._TT_T - 2: the template offset's clip
@@ -38,23 +44,31 @@ _T_MAX = 2.0  # lk_pallas._TT_T - 2: the template offset's clip
 
 def _check(prev, gx, gy, curr, pos, guess, valid, *, window, py, margin_x, margin_y):
     """svo_tpu's preconditions (lk_pallas.py:534-539), plus what the
-    kernel reads: four (H, W) f32 images of one shape with H >= py."""
+    kernel reads: four f32 images of one shape, (H, W) or (S, H, W), with
+    H >= py, and pos/guess/valid with the same leading axis."""
     imgs = (prev, gx, gy, curr)
-    H, W = prev.shape
+    shape = tuple(prev.shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"images must be (H, W) or (S, H, W), got {shape}")
+    H, W = shape[-2:]
     for im in imgs:
-        if im.dtype != torch.float32 or im.dim() != 2 or tuple(im.shape) != (H, W):
+        if im.dtype != torch.float32 or tuple(im.shape) != shape:
             raise ValueError(
-                f"images must be four (H, W) float32 tensors of one shape, got "
-                f"{[(tuple(i.shape), i.dtype) for i in imgs]}"
+                f"images must be four float32 tensors of one shape (H, W) or "
+                f"(S, H, W), got {[(tuple(i.shape), i.dtype) for i in imgs]}"
             )
         if im.device != prev.device:
             raise ValueError("images lie on different devices")
-    N = valid.shape[0]
-    if valid.dim() != 1 or valid.dtype != torch.bool:
-        raise ValueError(f"valid must be an (N,) bool tensor, got {tuple(valid.shape)} {valid.dtype}")
+    lead = shape[:-2]
+    if valid.dim() != len(lead) + 1 or tuple(valid.shape[:-1]) != lead or valid.dtype != torch.bool:
+        raise ValueError(
+            f"valid must be a bool tensor (N,) for (H, W) images and (S, N) for "
+            f"(S, H, W), got {tuple(valid.shape)} {valid.dtype} for images {shape}"
+        )
+    want = tuple(valid.shape) + (2,)
     for name, t in (("pos", pos), ("guess", guess)):
-        if tuple(t.shape) != (N, 2) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be ({N}, 2) float32, got {tuple(t.shape)} {t.dtype}")
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {want} float32, got {tuple(t.shape)} {t.dtype}")
         if t.device != prev.device:
             raise ValueError(f"{name} lies on {t.device}, the images on {prev.device}")
     if valid.device != prev.device:
@@ -80,11 +94,11 @@ def _corner(v: torch.Tensor, margin: int, hi: int) -> torch.Tensor:
 
 
 def _sample(img, iy, ix, ox, oy, w: int, max_off: tuple[int, int], live):
-    """(N, w, w) bilinear samples of img at rows iy + oy + r, cols
+    """(..., N, w, w) bilinear samples of img at rows iy + oy + r, cols
     ix + ox + c: x blended first, then y, with hat weights. Offsets lie in
     [0, max_off] (or are NaN); the tap after the last one has weight 0 and
     is read clamped to the image. Dead slots come back zero."""
-    H, W = img.shape
+    H, W = img.shape[-2:]
     ar = torch.arange(w, device=img.device)
 
     def taps(o, hi):
@@ -92,17 +106,17 @@ def _sample(img, iy, ix, ox, oy, w: int, max_off: tuple[int, int], live):
         af = a.to(torch.float32)
         w0 = torch.clamp(1.0 - torch.abs(o - af), min=0.0)
         w1 = torch.clamp(1.0 - torch.abs(o - (af + 1.0)), min=0.0)
-        return a, w0[:, None, None], w1[:, None, None]
+        return a, w0[..., None, None], w1[..., None, None]
 
     ax, wx0, wx1 = taps(ox, max_off[0])
     ay, wy0, wy1 = taps(oy, max_off[1])
-    r = (iy + ay)[:, None, None] + ar[None, :, None]
-    c = (ix + ax)[:, None, None] + ar[None, None, :]
+    r = (iy + ay)[..., None, None] + ar[:, None]
+    c = (ix + ax)[..., None, None] + ar[None, :]
     r0, r1 = torch.clamp(r, max=H - 1), torch.clamp(r + 1, max=H - 1)
     c0, c1 = torch.clamp(c, max=W - 1), torch.clamp(c + 1, max=W - 1)
-    top = wx0 * img[r0, c0] + wx1 * img[r0, c1]
-    bot = wx0 * img[r1, c0] + wx1 * img[r1, c1]
-    return torch.where(live[:, None, None], wy0 * top + wy1 * bot, 0.0)
+    top = wx0 * gather_hw(img, r0, c0) + wx1 * gather_hw(img, r0, c1)
+    bot = wx0 * gather_hw(img, r1, c0) + wx1 * gather_hw(img, r1, c1)
+    return torch.where(live[..., None, None], wy0 * top + wy1 * bot, 0.0)
 
 
 def lk_track_level_ref(
@@ -112,20 +126,20 @@ def lk_track_level_ref(
 ):
     """Plain PyTorch version of the fused level; same arguments and
     results as lk_track_level."""
-    H, W = prev.shape
+    H, W = prev.shape[-2:]
     w = window
     half = (w - 1) / 2.0
     Rx, Ry = float(2 * margin_x), float(2 * margin_y)
     t_tl = pos - half
     c_tl = pos + guess - half
-    t_iy = _corner(t_tl[:, 1], 0, H - py)
-    t_ix = _corner(t_tl[:, 0], 0, W - PX)
-    c_iy = _corner(c_tl[:, 1], margin_y, H - py)
-    c_ix = _corner(c_tl[:, 0], margin_x, W - PX)
-    t_ox = t_tl[:, 0] - t_ix.to(torch.float32)
-    t_oy = t_tl[:, 1] - t_iy.to(torch.float32)
-    o0x = c_tl[:, 0] - c_ix.to(torch.float32)
-    o0y = c_tl[:, 1] - c_iy.to(torch.float32)
+    t_iy = _corner(t_tl[..., 1], 0, H - py)
+    t_ix = _corner(t_tl[..., 0], 0, W - PX)
+    c_iy = _corner(c_tl[..., 1], margin_y, H - py)
+    c_ix = _corner(c_tl[..., 0], margin_x, W - PX)
+    t_ox = t_tl[..., 0] - t_ix.to(torch.float32)
+    t_oy = t_tl[..., 1] - t_iy.to(torch.float32)
+    o0x = c_tl[..., 0] - c_ix.to(torch.float32)
+    o0y = c_tl[..., 1] - c_iy.to(torch.float32)
     t_in = (t_ox >= 0.0) & (t_ox <= _T_MAX) & (t_oy >= 0.0) & (t_oy <= _T_MAX)
     t_ox = torch.clamp(t_ox, 0.0, _T_MAX)
     t_oy = torch.clamp(t_oy, 0.0, _T_MAX)
@@ -135,9 +149,9 @@ def lk_track_level_ref(
     Tx = _sample(gx, t_iy, t_ix, t_ox, t_oy, w, t_box, valid)
     Ty = _sample(gy, t_iy, t_ix, t_ox, t_oy, w, t_box, valid)
 
-    a11 = torch.sum(Tx * Tx, dim=(1, 2))
-    a12 = torch.sum(Tx * Ty, dim=(1, 2))
-    a22 = torch.sum(Ty * Ty, dim=(1, 2))
+    a11 = torch.sum(Tx * Tx, dim=(-2, -1))
+    a12 = torch.sum(Tx * Ty, dim=(-2, -1))
+    a22 = torch.sum(Ty * Ty, dim=(-2, -1))
     tr_half = (a11 + a22) * 0.5
     det = a11 * a22 - a12 * a12
     disc = torch.sqrt(torch.clamp(tr_half * tr_half - det, min=0.0))
@@ -158,8 +172,8 @@ def lk_track_level_ref(
             w, c_box, valid,
         )
         diff = Iw - T
-        b1 = torch.sum(diff * Tx, dim=(1, 2))
-        b2 = torch.sum(diff * Ty, dim=(1, 2))
+        b1 = torch.sum(diff * Tx, dim=(-2, -1))
+        b2 = torch.sum(diff * Ty, dim=(-2, -1))
         du = -(i11 * b1 + i12 * b2)
         dv = -(i12 * b1 + i22 * b2)
         active = (1.0 - conv) * in_patch
@@ -196,8 +210,10 @@ def lk_track_level(
 
     prev/gx/gy/curr: padded level images (see ops/klt.py); pos: (N, 2)
     positions in padded level coordinates; guess: (N, 2) flow in; valid:
-    (N,) bool. margin_x/margin_y: the per-axis travel budget is 2*margin
-    px. Positions of features whose status ends False carry no meaning."""
+    (N,) bool. With (S, H, W) images every other argument and result has
+    the leading S too, and the card runs one launch whatever S is.
+    margin_x/margin_y: the per-axis travel budget is 2*margin px. Positions
+    of features whose status ends False carry no meaning."""
     kw = dict(window=window, py=py, margin_x=margin_x, margin_y=margin_y)
     _check(prev, gx, gy, curr, pos, guess, valid, **kw)
     if prev.device.type == "cpu":
@@ -210,20 +226,23 @@ def lk_track_level(
     if window > 32:
         raise ValueError(f"the CUDA kernel holds windows up to 32x32, got {window}")
     lib = _build.load()
-    H, W = prev.shape
-    N = valid.shape[0]
+    H, W = prev.shape[-2:]
+    S = prev.shape[0] if prev.dim() == 3 else 1
+    N = valid.shape[-1]
+    # the kernel reads image s at base + s*H*W: a strided view (a slice of
+    # a larger stack) is copied to that layout here, never read as it lies
     imgs = [im.contiguous() for im in (prev, gx, gy, curr)]
     pos_c, guess_c, valid_c = pos.contiguous(), guess.contiguous(), valid.contiguous()
-    out = torch.empty((N, 8), dtype=torch.float32, device=prev.device)
+    out = torch.empty(tuple(valid.shape) + (8,), dtype=torch.float32, device=prev.device)
     code = lib.svo_lk_level(
-        *(im.data_ptr() for im in imgs), H, W,
+        *(im.data_ptr() for im in imgs), S, H, W,
         pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), N,
         window, py, margin_x, margin_y, max_iters, eps * eps, min_eig_threshold,
         out.data_ptr(), torch.cuda.current_stream(prev.device).cuda_stream,
     )
     _build.check(lib, code, "lk_level")
     lk_track_level.launches += 1
-    return guess + out[:, 0:2], out[:, 2], out[:, 3] > 0.5, out[:, 4] > 0.5
+    return guess + out[..., 0:2], out[..., 2], out[..., 3] > 0.5, out[..., 4] > 0.5
 
 
 lk_track_level.launches = 0  # kernel launches since the last reset

@@ -10,11 +10,12 @@ import torch.nn.functional as F
 
 
 def _window_max(img: torch.Tensor, size: int) -> torch.Tensor:
-    """Separable sliding-window max with -inf padding."""
+    """Separable sliding-window max with -inf padding, (..., H, W)."""
     pad = size // 2
-    x = F.max_pool2d(img[None, None], (size, 1), stride=1, padding=(pad, 0))
+    x = img.reshape((-1, 1) + img.shape[-2:])
+    x = F.max_pool2d(x, (size, 1), stride=1, padding=(pad, 0))
     x = F.max_pool2d(x, (1, size), stride=1, padding=(0, pad))
-    return x[0, 0]
+    return x.reshape(img.shape)
 
 
 def nms3x3(score: torch.Tensor) -> torch.Tensor:
@@ -29,12 +30,13 @@ def suppression_mask(
     valid: torch.Tensor,
     halfwidth: int,
 ) -> torch.Tensor:
-    """(H, W) bool mask, True where detection is suppressed: a
+    """(..., H, W) bool mask, True where detection is suppressed: a
     (2*halfwidth+1)^2 square around every valid feature's truncated
-    (x, y) position."""
+    (x, y) position. shape is (H, W); pos (..., N, 2), valid (..., N)."""
     H, W = shape
-    x = torch.clamp(pos[:, 0].to(torch.int32), 0, W - 1).long()
-    y = torch.clamp(pos[:, 1].to(torch.int32), 0, H - 1).long()
-    hits = torch.zeros((H, W), dtype=torch.float32, device=pos.device)
-    hits.index_put_((y, x), valid.to(torch.float32), accumulate=True)
+    x = torch.clamp(pos[..., 0].to(torch.int32), 0, W - 1).long()
+    y = torch.clamp(pos[..., 1].to(torch.int32), 0, H - 1).long()
+    hits = torch.zeros(valid.shape[:-1] + (H * W,), dtype=torch.float32, device=pos.device)
+    hits.scatter_add_(-1, y * W + x, valid.to(torch.float32))
+    hits = hits.reshape(valid.shape[:-1] + (H, W))
     return _window_max(hits, 2 * halfwidth + 1) > 0.0

@@ -54,26 +54,28 @@ def bucketed_topk(
     (tier, within-cell rank, golden-ratio cell spread) of svo_tpu: strong
     (score > strong_gap) before weak, every cell's best before any cell's
     second best, cells in a spatially spread order. Returns pos (max_out, 2)
-    f32 (x, y), score (max_out,), valid (max_out,)."""
-    H, W = score.shape
+    f32 (x, y), score (max_out,), valid (max_out,). A score map
+    (..., H, W) selects per leading index, each with its own sort."""
+    H, W = score.shape[-2:]
+    lead = score.shape[:-2]
     B = bucket_size
     Hp = -(-H // B) * B
     Wp = -(-W // B) * B
     s = torch.nn.functional.pad(score, (0, Wp - W, 0, Hp - H))
     hc, wc = Hp // B, Wp // B
-    cells = s.reshape(hc, B, wc, B).permute(0, 2, 1, 3).reshape(hc * wc, B * B)
+    cells = s.reshape(lead + (hc, B, wc, B)).transpose(-3, -2).reshape(lead + (hc * wc, B * B))
 
     k = min(per_bucket, B * B)
     cell_scores, cell_idx = _topk_rounds(cells, k)  # (C, k)
 
-    C = cells.shape[0]
+    C = hc * wc
     dev = score.device
     cell = torch.arange(C, device=dev)
     py = (cell // wc)[:, None] * B + cell_idx // B
     px = (cell % wc)[:, None] * B + cell_idx % B
-    flat_scores = cell_scores.reshape(-1)
-    flat_x = px.reshape(-1)
-    flat_y = py.reshape(-1)
+    flat_scores = cell_scores.reshape(lead + (-1,))
+    flat_x = px.reshape(lead + (-1,))
+    flat_y = py.reshape(lead + (-1,))
 
     rank = torch.arange(k, dtype=torch.int32, device=dev)[None, :].expand(C, k).reshape(-1)
     cell_of = torch.arange(C, dtype=torch.float32, device=dev)
@@ -82,16 +84,17 @@ def bucketed_topk(
     weak = (flat_scores <= strong_gap).to(torch.int32) if strong_gap > 0 else 0
     prio = (weak * k + rank) * (C + 1) + spread  # ascending = better first
     key = torch.where(flat_scores > 0.0, -prio, _INT32_MIN)
-    top_key, top_i = _topk_stable(key, min(max_out, key.shape[0]))
-    top_scores = flat_scores[top_i]
-    out_x = flat_x[top_i].to(torch.float32)
-    out_y = flat_y[top_i].to(torch.float32)
+    top_key, top_i = _topk_stable(key, min(max_out, key.shape[-1]))
+    top_scores = torch.gather(flat_scores, -1, top_i)
+    out_x = torch.gather(flat_x, -1, top_i).to(torch.float32)
+    out_y = torch.gather(flat_y, -1, top_i).to(torch.float32)
     valid = (top_key > _INT32_MIN) & (top_scores > 0.0)
 
-    pad = max_out - top_scores.shape[0]
+    pad = max_out - top_scores.shape[-1]
     if pad > 0:
         out_x, out_y, top_scores, valid = (
-            torch.cat([a, a.new_zeros(pad)]) for a in (out_x, out_y, top_scores, valid)
+            torch.cat([a, a.new_zeros(lead + (pad,))], dim=-1)
+            for a in (out_x, out_y, top_scores, valid)
         )
     return torch.stack([out_x, out_y], dim=-1), top_scores, valid
 
@@ -100,9 +103,9 @@ def global_topk(
     score: torch.Tensor, max_out: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain global top-k from a score map (bucketing disabled). Scores
-    <= 0 are not candidates."""
-    H, W = score.shape
-    top_scores, top_i = _topk_stable(score.reshape(-1), max_out)
+    <= 0 are not candidates. (..., H, W) selects per leading index."""
+    W = score.shape[-1]
+    top_scores, top_i = _topk_stable(score.reshape(score.shape[:-2] + (-1,)), max_out)
     pos = torch.stack(
         [(top_i % W).to(torch.float32), (top_i // W).to(torch.float32)], dim=-1
     )

@@ -12,8 +12,13 @@ round trip per frame: every data-dependent choice is a torch.where, as in
 svo_tpu. Only kf_mode="dynamic" branches on the host, once per frame.
 
 Scatters follow jax's mode="drop": rows whose index is out of range are
-written to a spare row that is then cut off (_scatter_drop), never raised
-on and never read back.
+written to a spare row that is then cut off (ops/index.scatter_drop), never
+raised on and never read back.
+
+The stream axis: svo_tpu steps S streams in lockstep with jax.vmap of this
+step. Here every function takes the state with a leading (S,) on each leaf
+and images (S, H, W), written out as leading "..." axes, so the same body
+steps one stream or S, with no loop over streams.
 
 The in-pipeline window BA (cfg.ba.enabled) is not ported yet (ROADMAP A12).
 """
@@ -30,6 +35,7 @@ from svo_tpu_torch.geometry.camera import Camera, project as camera_project
 from svo_tpu_torch.geometry.pnp import gumbel_noise, ransac_pnp
 from svo_tpu_torch.geometry.triangulate import triangulate_dlt, triangulate_rectified
 from svo_tpu_torch.ops import detect as detect_mod
+from svo_tpu_torch.ops.index import scatter_drop, take_rows
 from svo_tpu_torch.ops.klt import KltTracker
 from svo_tpu_torch.pipeline.state import FeatureSet, MapState, VoState
 
@@ -42,18 +48,20 @@ def _check_cfg(cfg: Config) -> None:
         )
 
 
-def _scatter_drop(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """dst with dst[idx[i]] = src[i] (a new tensor); rows whose idx lies
-    outside [0, len(dst)) are dropped, as jax's .at[].set(mode="drop")."""
-    n = dst.shape[0]
-    ok = (idx >= 0) & (idx < n)
-    out = torch.cat([dst, dst[:1]])  # the spare last row takes dropped rows
-    out.index_put_((torch.where(ok, idx, n).long(),), src)
-    return out[:n]
-
-
 def _count(mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(mask.to(torch.int32), dtype=torch.int32)
+    """True entries along the last axis, i32."""
+    return torch.sum(mask.to(torch.int32), dim=-1, dtype=torch.int32)
+
+
+def _select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a where the per-stream flag cond (...,) holds, else b; a and b carry
+    cond's axes first."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
+
+
+def _all_finite(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 1, 1) bool: every entry of the matrix finite."""
+    return torch.all(torch.isfinite(T.flatten(-2)), dim=-1)[..., None, None]
 
 
 # --------------------------------------------------------------------------
@@ -65,12 +73,12 @@ def _alloc_points(
 ) -> tuple[torch.Tensor, MapState]:
     """Allocate map-point slots for valid rows of Xw (monotone cursor).
     Returns per-row point ids (-1 where invalid or the table is full)."""
-    M = mp.points.shape[0]
+    M = mp.points.shape[-2]
     v = valid.to(torch.int32)
-    offsets = torch.cumsum(v, 0, dtype=torch.int32) - v  # rank among valid rows
-    ids = torch.where(valid, mp.n_points + offsets, -1)
+    offsets = torch.cumsum(v, -1, dtype=torch.int32) - v  # rank among valid rows
+    ids = torch.where(valid, mp.n_points[..., None] + offsets, -1)
     ids = torch.where(ids < M, ids, -1)  # capacity guard
-    points = _scatter_drop(mp.points, ids, Xw)
+    points = scatter_drop(mp.points, ids, Xw)
     return ids, mp._replace(points=points, n_points=mp.n_points + _count(ids >= 0))
 
 
@@ -84,18 +92,18 @@ def _record_obs(
 ) -> MapState:
     """Append (frame, point, uv[, u_right]) rows to the observation ring;
     u_right < 0 marks a mono observation."""
-    O = mp.obs_u.shape[0]
+    O = mp.obs_u.shape[-1]
     v = valid.to(torch.int32)
-    offs = torch.cumsum(v, 0, dtype=torch.int32) - v
-    slots = torch.where(valid, (mp.obs_cursor + offs) % O, O)  # O -> dropped
+    offs = torch.cumsum(v, -1, dtype=torch.int32) - v
+    slots = torch.where(valid, (mp.obs_cursor[..., None] + offs) % O, O)  # O -> dropped
     if u_right is None:
         u_right = torch.full(pid.shape, -1.0, dtype=torch.float32, device=pid.device)
     return mp._replace(
-        obs_u=_scatter_drop(mp.obs_u, slots, uv[:, 0]),
-        obs_v=_scatter_drop(mp.obs_v, slots, uv[:, 1]),
-        obs_ur=_scatter_drop(mp.obs_ur, slots, u_right),
-        obs_pid=_scatter_drop(mp.obs_pid, slots, pid),
-        obs_fid=_scatter_drop(mp.obs_fid, slots, frame_id.expand(pid.shape)),
+        obs_u=scatter_drop(mp.obs_u, slots, uv[..., 0]),
+        obs_v=scatter_drop(mp.obs_v, slots, uv[..., 1]),
+        obs_ur=scatter_drop(mp.obs_ur, slots, u_right),
+        obs_pid=scatter_drop(mp.obs_pid, slots, pid),
+        obs_fid=scatter_drop(mp.obs_fid, slots, frame_id[..., None].expand(pid.shape)),
         obs_cursor=mp.obs_cursor + _count(valid),
     )
 
@@ -114,17 +122,17 @@ def _merge_features(
     Every tracked key is 2e9 + age in f32, one value for all small ages, so
     the slot order comes from the tie rule alone: a stable sort keeps
     lax.top_k's lower-index-first order."""
-    N = feats.pos.shape[0]
+    N = feats.pos.shape[-2]
     key_tracked = torch.where(feats.valid, 2e9 + feats.age.to(torch.float32), -1.0)
     key_new = torch.where(new_valid, torch.clamp(new_score, min=0.0), -1.0)
-    keys = torch.cat([key_tracked, key_new])
-    idx = torch.sort(keys, descending=True, stable=True)[1][:N]
+    keys = torch.cat([key_tracked, key_new], dim=-1)
+    idx = torch.sort(keys, dim=-1, descending=True, stable=True)[1][..., :N]
     return FeatureSet(
-        pos=torch.cat([feats.pos, new_pos])[idx],
-        valid=keys[idx] >= 0.0,
-        point_id=torch.cat([feats.point_id, new_pid])[idx],
-        age=torch.cat([feats.age, torch.zeros_like(new_pid)])[idx],
-        anchor=torch.cat([feats.anchor, new_pos])[idx],
+        pos=take_rows(torch.cat([feats.pos, new_pos], dim=-2), idx),
+        valid=torch.gather(keys, -1, idx) >= 0.0,
+        point_id=torch.gather(torch.cat([feats.point_id, new_pid], dim=-1), -1, idx),
+        age=torch.gather(torch.cat([feats.age, torch.zeros_like(new_pid)], dim=-1), -1, idx),
+        anchor=take_rows(torch.cat([feats.anchor, new_pos], dim=-2), idx),
     )
 
 
@@ -152,7 +160,7 @@ def _replenish(
     sres = KltTracker.track(
         pyr_l, pyr_r, det_pos, det_valid, cfg.stereo_klt, engine=lk_engine
     )
-    y_ok = torch.abs(sres.pos[:, 1] - det_pos[:, 1]) < cfg.tracking.y_threshold
+    y_ok = torch.abs(sres.pos[..., 1] - det_pos[..., 1]) < cfg.tracking.y_threshold
     s_valid = det_valid & sres.status & y_ok
 
     # 3. triangulate, cheirality z > 0, depth cap, to world via the pose
@@ -160,23 +168,23 @@ def _replenish(
         Xc = triangulate_rectified(camera.fx, camera.baseline, det_pos, sres.pos, camera.K)
     else:
         Xc = triangulate_dlt(camera.P_left, camera.P_right, det_pos, sres.pos)
-    new_valid = s_valid & (Xc[:, 2] > 0)
+    new_valid = s_valid & (Xc[..., 2] > 0)
     if cfg.tracking.max_depth_baselines > 0:
-        new_valid = new_valid & (Xc[:, 2] < cfg.tracking.max_depth_baselines * camera.baseline)
+        new_valid = new_valid & (Xc[..., 2] < cfg.tracking.max_depth_baselines * camera.baseline)
     Xw = se3.transform(pose, Xc)
 
     # 4. allocate map points + record the triangulating (stereo) observation
     ids, mp = _alloc_points(mp, Xw, new_valid)
     new_valid = new_valid & (ids >= 0)
-    u_right = torch.where(sres.status, sres.pos[:, 0], -1.0)
+    u_right = torch.where(sres.status, sres.pos[..., 0], -1.0)
     mp = _record_obs(mp, det_pos, ids, new_valid, frame_id, u_right=u_right)
 
     # 5. merge: survivors re-anchor at this keyframe; new detections compete
     #    by selection order (spatially spread), not by raw score
     feats = feats._replace(anchor=feats.pos)
-    D = det_pos.shape[0]
+    D = det_pos.shape[-2]
     det_prio = torch.arange(D, 0, -1, dtype=torch.float32, device=det_pos.device)
-    return _merge_features(feats, det_pos, ids, det_prio, new_valid), mp
+    return _merge_features(feats, det_pos, ids, det_prio.expand(ids.shape), new_valid), mp
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +209,14 @@ def step_body(
     (unconditional replenish). The PnP sampling noise is `pnp_noise`
     ((num_hypotheses, N) Gumbel) if given, else drawn from `generator`.
     lk_engine: the KLT engine of all three tracker calls, "patches" or
-    "fused" (ops/klt.py)."""
+    "fused" (ops/klt.py).
+
+    With a batched state (every leaf with a leading (S,)) and images
+    (S, H, W) it steps S streams at once: pnp_noise is (S, hypotheses, N),
+    drawn from `generator` in one call if not given. Under "dynamic" every stream
+    keeps its own keyframe decision: replenishment is computed for all
+    streams and selected per stream, as jax.vmap of svo_tpu's lax.cond; it
+    is skipped when no stream keyframes."""
     if kf_mode not in ("dynamic", "never", "always"):
         raise ValueError(f"kf_mode {kf_mode!r}")
     _check_cfg(cfg)
@@ -218,7 +233,7 @@ def step_body(
                 & (fid - state.last_kf_id >= cfg.tracking.kf_max_interval)
             )
     else:
-        is_kf = torch.full((), kf_mode == "always", dtype=torch.bool, device=dev)
+        is_kf = torch.full(fid.shape, kf_mode == "always", dtype=torch.bool, device=dev)
     last_kf_id = torch.where(is_kf, fid, state.last_kf_id)
 
     pyr_l = KltTracker.build_pyramid(left, cfg.temporal_klt.max_level)
@@ -230,23 +245,23 @@ def step_body(
 
     if cfg.motion_prior:
         prior_ok = state.prior_ok
-        rel = torch.where(prior_ok, state.rel_motion, eye4)
+        rel = torch.where(prior_ok[..., None, None], state.rel_motion, eye4)
         T_wc_pred = se3.compose(rel, state.pose)
         if cfg.flow_seeding:
             T_cw_pred = se3.inverse(T_wc_pred)
-            M = state.map.points.shape[0]
-            Xw_prior = state.map.points[state.features.point_id.clamp(0, M - 1).long()]
+            M = state.map.points.shape[-2]
+            Xw_prior = take_rows(state.map.points, state.features.point_id.clamp(0, M - 1))
             uv_pred = camera_project(camera.K, se3.transform(T_cw_pred, Xw_prior))
             delta = uv_pred - state.features.pos
             flow_ok = (
                 state.features.valid
-                & prior_ok
+                & prior_ok[..., None]
                 & torch.all(torch.isfinite(delta), dim=-1)
                 & (torch.sum(delta * delta, dim=-1) < 200.0**2)
             )
             seeded = uv_pred - track_src
             fallback = base_flow if base_flow is not None else torch.zeros_like(seeded)
-            init_flow = torch.where(flow_ok[:, None], seeded, fallback)
+            init_flow = torch.where(flow_ok[..., None], seeded, fallback)
         else:
             init_flow = base_flow
     else:
@@ -277,12 +292,14 @@ def step_body(
     n_tracked = tracked.count()
 
     # --- pose: LO-RANSAC PnP with the previous pose as an extra start ---
-    M = state.map.points.shape[0]
-    Xw = state.map.points[tracked.point_id.clamp(0, M - 1).long()]
+    M = state.map.points.shape[-2]
+    Xw = take_rows(state.map.points, tracked.point_id.clamp(0, M - 1))
     if pnp_noise is None:
         if generator is None:
             raise ValueError("step_body needs a generator or pnp_noise")
-        pnp_noise = gumbel_noise((cfg.ransac.num_hypotheses, Xw.shape[0]), generator, dev)
+        pnp_noise = gumbel_noise(
+            Xw.shape[:-2] + (cfg.ransac.num_hypotheses, Xw.shape[-2]), generator, dev
+        )
     pres = ransac_pnp(
         camera.K, Xw, tracked.pos, tracked.valid, pnp_noise, cfg.ransac,
         T_init=se3.inverse(state.pose),
@@ -293,24 +310,25 @@ def step_body(
         # constant-velocity prediction (no impossible rotation, no false
         # zero-motion lock); strong support is always accepted
         rel_step = se3.compose(pres.T_wc, se3.inverse(state.pose))
-        rel_pred = torch.where(state.prior_ok, state.rel_motion, eye4)
+        rel_pred = torch.where(state.prior_ok[..., None, None], state.rel_motion, eye4)
         cos_a = torch.clamp(
-            (rel_step[0, 0] + rel_step[1, 1] + rel_step[2, 2] - 1.0) * 0.5, -1.0, 1.0
+            (rel_step[..., 0, 0] + rel_step[..., 1, 1] + rel_step[..., 2, 2] - 1.0) * 0.5,
+            -1.0, 1.0,
         )
         step_deg = torch.rad2deg(torch.arccos(cos_a))
-        not_locked = torch.linalg.norm(rel_step[:3, 3]) >= 0.3 * torch.linalg.norm(
-            rel_pred[:3, 3]
+        not_locked = torch.linalg.norm(rel_step[..., :3, 3], dim=-1) >= 0.3 * torch.linalg.norm(
+            rel_pred[..., :3, 3], dim=-1
         )
         strong = (_count(pres.inliers) >= cfg.tracking.sane_min_inliers) & (
             pres.inlier_ratio >= 0.5
         )
         sane = (step_deg <= cfg.tracking.max_step_rot_deg) & not_locked
         pnp_ok = pnp_ok & (sane | strong)
-    pose = torch.where(pnp_ok, pres.T_wc, T_wc_pred)
+    pose = torch.where(pnp_ok[..., None, None], pres.T_wc, T_wc_pred)
     # never let a non-finite pose poison the recursive state
-    pose = torch.where(torch.all(torch.isfinite(pose)), pose, state.pose)
+    pose = torch.where(_all_finite(pose), pose, state.pose)
     rel_motion = se3.compose(pose, se3.inverse(state.pose))
-    rel_motion = torch.where(torch.all(torch.isfinite(rel_motion)), rel_motion, eye4)
+    rel_motion = torch.where(_all_finite(rel_motion), rel_motion, eye4)
     pnp_healthy = pnp_ok & (pres.inlier_ratio > 0.5)
 
     # purge features whose map point went stale under the new pose (behind
@@ -320,15 +338,15 @@ def step_body(
     uv_now = camera_project(camera.K, Xc_now)
     Hh, Ww = cfg.image_height, cfg.image_width
     geom_ok = (
-        (Xc_now[:, 2] > 0.5)
-        & (uv_now[:, 0] >= -20)
-        & (uv_now[:, 0] < Ww + 20)
-        & (uv_now[:, 1] >= -20)
-        & (uv_now[:, 1] < Hh + 20)
+        (Xc_now[..., 2] > 0.5)
+        & (uv_now[..., 0] >= -20)
+        & (uv_now[..., 0] < Ww + 20)
+        & (uv_now[..., 1] >= -20)
+        & (uv_now[..., 1] < Hh + 20)
     )
     if cfg.tracking.max_track_age > 0:
         geom_ok = geom_ok & (tracked.age < cfg.tracking.max_track_age)
-    inl_keep = torch.where(pnp_ok, pres.inliers, tracked.valid)
+    inl_keep = torch.where(pnp_ok[..., None], pres.inliers, tracked.valid)
     feats = tracked._replace(valid=tracked.valid & inl_keep & geom_ok)
 
     mp = _record_obs(state.map, feats.pos, feats.point_id, feats.valid, fid)
@@ -341,15 +359,17 @@ def step_body(
     elif kf_mode == "dynamic":
         # The one host round trip per frame, and only in this mode (svo_tpu
         # takes a lax.cond on device here); the cadenced chunk step never
-        # comes here.
-        kf_on_host = bool(is_kf)
+        # comes here. Streams that do not keyframe keep what they had.
+        kf_on_host = bool(is_kf.any())
         if kf_on_host:
-            feats, mp = _replenish(
+            new_feats, new_mp = _replenish(
                 feats, mp, left, pyr_l, right, pose, fid, camera, cfg, lk_engine
             )
+            feats = FeatureSet(*(_select(is_kf, a, b) for a, b in zip(new_feats, feats)))
+            mp = MapState(*(_select(is_kf, a, b) for a, b in zip(new_mp, mp)))
 
-    poses = _scatter_drop(state.poses, fid.reshape(1), pose[None])
-    kf_flags = _scatter_drop(state.kf_flags, fid.reshape(1), is_kf.reshape(1))
+    poses = scatter_drop(state.poses, fid[..., None], pose[..., None, :, :])
+    kf_flags = scatter_drop(state.kf_flags, fid[..., None], is_kf[..., None])
     metrics_row = torch.stack(
         [
             n_tracked.to(torch.float32),
@@ -357,7 +377,8 @@ def step_body(
             feats.count().to(torch.float32),
             is_kf.to(torch.float32),
             mp.n_points.to(torch.float32),
-        ]
+        ],
+        dim=-1,
     )
     # anchored mode keeps the KEYFRAME pyramid as the template source;
     # chained mode carries the current frame's pyramid
@@ -365,8 +386,18 @@ def step_body(
         out_pyr = pyr_l
     elif kf_mode == "never":
         out_pyr = state.prev_pyramid
+    elif kf_on_host:
+        levels, grads = pyr_l
+        old_levels, old_grads = state.prev_pyramid
+        out_pyr = (
+            tuple(_select(is_kf, a, b) for a, b in zip(levels, old_levels)),
+            tuple(
+                (_select(is_kf, ax, bx), _select(is_kf, ay, by))
+                for (ax, ay), (bx, by) in zip(grads, old_grads)
+            ),
+        )
     else:
-        out_pyr = pyr_l if kf_on_host else state.prev_pyramid
+        out_pyr = state.prev_pyramid
     return VoState(
         features=feats,
         map=mp,
@@ -379,7 +410,7 @@ def step_body(
         prior_ok=pnp_healthy,
         poses=poses,
         kf_flags=kf_flags,
-        metrics=_scatter_drop(state.metrics, fid.reshape(1), metrics_row[None]),
+        metrics=scatter_drop(state.metrics, fid[..., None], metrics_row[..., None, :]),
     )
 
 
@@ -392,12 +423,21 @@ def make_cadenced_chunk_step(
     (kf_mode="never"), so no step branches on data.
 
     Returns (state, lefts_u8 (K,H,W), rights_u8, generator) -> state;
-    `chunk` must be a multiple of `cadence`."""
+    `chunk` must be a multiple of `cadence`. A batched state of S streams
+    takes (K,S,H,W) frame-major inputs and steps the streams in lockstep
+    (svo_tpu's n_streams argument is read off the state here)."""
     if cadence < 1 or chunk % cadence:
         raise ValueError(f"chunk {chunk} must be a positive multiple of cadence {cadence}")
     _check_cfg(cfg)
 
     def run_chunk(state: VoState, lefts_u8, rights_u8, generator) -> VoState:
+        lead = tuple(state.frame_id.shape)  # () for one stream, (S,) batched
+        for name, x in (("lefts_u8", lefts_u8), ("rights_u8", rights_u8)):
+            if x.dim() != 3 + len(lead) or tuple(x.shape[1:-2]) != lead:
+                raise ValueError(
+                    f"{name}: expected (K, {'S, ' if lead else ''}H, W) for a state of "
+                    f"{lead[0] if lead else 'no'} streams, got {tuple(x.shape)}"
+                )
         for i, (l, r) in enumerate(zip(lefts_u8, rights_u8)):
             state = step_body(
                 state, l.to(torch.float32), r.to(torch.float32), camera, cfg,
@@ -411,39 +451,44 @@ def make_cadenced_chunk_step(
 
 def make_bootstrap(camera: Camera, cfg: Config, lk_engine: str = "patches"):
     """Bootstrap: frame 0 is always a keyframe — detect, stereo-match,
-    triangulate at the identity pose. Returns (left, right) -> VoState."""
+    triangulate at the identity pose. Returns (left, right) -> VoState;
+    (S, H, W) stacks of first frames give the batched state of S streams."""
     _check_cfg(cfg)
 
     def bootstrap(left: torch.Tensor, right: torch.Tensor) -> VoState:
         dev = left.device
+        lead = tuple(left.shape[:-2])  # () for one stream, (S,) for a stack
         N = cfg.capacity.max_features
         F = cfg.capacity.max_frames
         pyr_l = KltTracker.build_pyramid(left, cfg.temporal_klt.max_level)
-        pose0 = se3.identity(device=dev)
-        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        pose0 = se3.identity(device=dev).repeat(lead + (1, 1))
+        zero_i = torch.zeros(lead, dtype=torch.int32, device=dev)
         feats, mp = _replenish(
-            FeatureSet.empty(N, dev), MapState.empty(cfg, dev),
+            FeatureSet.empty(N, dev, lead), MapState.empty(cfg, dev, lead),
             left, pyr_l, right, pose0, zero_i, camera, cfg, lk_engine,
         )
-        metrics0 = torch.zeros((F, 5), dtype=torch.float32, device=dev)
-        metrics0[0, 2] = feats.count().to(torch.float32)
-        metrics0[0, 3] = 1.0
-        metrics0[0, 4] = mp.n_points.to(torch.float32)
-        kf_flags = torch.zeros((F,), dtype=torch.bool, device=dev)
-        kf_flags[0] = True
+        zero = torch.zeros(lead, dtype=torch.float32, device=dev)
+        row0 = torch.stack(
+            [zero, zero, feats.count().to(torch.float32), zero + 1.0,
+             mp.n_points.to(torch.float32)],
+            dim=-1,
+        )
+        rest = torch.zeros(lead + (F - 1, 5), dtype=torch.float32, device=dev)
+        kf_flags = torch.zeros(lead + (F,), dtype=torch.bool, device=dev)
+        kf_flags[..., 0] = True
         return VoState(
             features=feats,
             map=mp,
             prev_pyramid=pyr_l,
             frame_id=zero_i,
-            prev_is_kf=torch.ones((), dtype=torch.bool, device=dev),
+            prev_is_kf=torch.ones(lead, dtype=torch.bool, device=dev),
             last_kf_id=zero_i,
             pose=pose0,
-            rel_motion=torch.eye(4, dtype=torch.float32, device=dev),
-            prior_ok=torch.zeros((), dtype=torch.bool, device=dev),
-            poses=torch.eye(4, dtype=torch.float32, device=dev).repeat(F, 1, 1),
+            rel_motion=pose0.clone(),
+            prior_ok=torch.zeros(lead, dtype=torch.bool, device=dev),
+            poses=pose0[..., None, :, :].repeat((1,) * len(lead) + (F, 1, 1)),
             kf_flags=kf_flags,
-            metrics=metrics0,
+            metrics=torch.cat([row0[..., None, :], rest], dim=-2),
         )
 
     return bootstrap

@@ -33,6 +33,19 @@ class RunResult:
     per_frame_ms: list = field(default_factory=list)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an engine runs on. The card is the default; the CPU is
+    used only when the caller asks for it, never as a fallback."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was asked for (the default) but "
+            f"torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            f"on the CPU"
+        )
+    return device
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -48,10 +61,11 @@ class StereoVO:
         seed: int = 0,
         chunk: int = 0,
         kf_cadence: int = 0,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
         lk_engine: str = "patches",
     ):
-        """chunk > 0 enables run_chunked, which replenishes every
+        """Runs on the card unless device="cpu" is passed; without a CUDA
+        device the default raises. chunk > 0 enables run_chunked, which replenishes every
         `kf_cadence` frames (frontend.make_cadenced_chunk_step); svo_tpu's
         chunked step with the data-dependent keyframe rule (kf_cadence=0)
         is not ported. process() and run() use the data-dependent rule.
@@ -61,7 +75,7 @@ class StereoVO:
         if lk_engine not in ENGINES:
             raise ValueError(f"lk_engine {lk_engine!r} is not one of {ENGINES}")
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.camera = camera.to(self.device)
         self.seed = seed
         self.chunk = chunk

@@ -6,9 +6,13 @@ COO observation ring, VoState everything a frame step needs. svo_tpu's
 VoState also carries a jax PRNG key; here the engine holds a
 torch.Generator instead, so the port's VoState has no `rng` field.
 
+A batched state of S streams (parallel/batched.py) is the same structure
+with a leading (S,) on every leaf, as jax.vmap makes svo_tpu's; stack and
+unstack convert between S single states and one batched state.
+
 from_numpy / to_numpy convert between svo_tpu's state fetched to numpy
-(jax.tree.map(np.asarray, state)) and this one, so both packages can run
-a step from the same state.
+(jax.tree.map(np.asarray, state)) and this one, single or batched, so both
+packages can run a step from the same state.
 """
 
 from __future__ import annotations
@@ -29,17 +33,18 @@ class FeatureSet(NamedTuple):
     anchor: torch.Tensor    # (N, 2) f32 position in the anchor keyframe
 
     @staticmethod
-    def empty(n: int, device=None) -> "FeatureSet":
+    def empty(n: int, device=None, lead: tuple = ()) -> "FeatureSet":
+        """`lead` is () for one stream, (S,) for a batched state."""
         return FeatureSet(
-            pos=torch.zeros((n, 2), dtype=torch.float32, device=device),
-            valid=torch.zeros((n,), dtype=torch.bool, device=device),
-            point_id=torch.full((n,), -1, dtype=torch.int32, device=device),
-            age=torch.zeros((n,), dtype=torch.int32, device=device),
-            anchor=torch.zeros((n, 2), dtype=torch.float32, device=device),
+            pos=torch.zeros(lead + (n, 2), dtype=torch.float32, device=device),
+            valid=torch.zeros(lead + (n,), dtype=torch.bool, device=device),
+            point_id=torch.full(lead + (n,), -1, dtype=torch.int32, device=device),
+            age=torch.zeros(lead + (n,), dtype=torch.int32, device=device),
+            anchor=torch.zeros(lead + (n, 2), dtype=torch.float32, device=device),
         )
 
     def count(self) -> torch.Tensor:
-        return torch.sum(self.valid.to(torch.int32), dtype=torch.int32)
+        return torch.sum(self.valid.to(torch.int32), dim=-1, dtype=torch.int32)
 
 
 class MapState(NamedTuple):
@@ -53,20 +58,20 @@ class MapState(NamedTuple):
     obs_cursor: torch.Tensor  # i32 ring cursor
 
     @staticmethod
-    def empty(cfg: Config, device=None) -> "MapState":
+    def empty(cfg: Config, device=None, lead: tuple = ()) -> "MapState":
         m = cfg.capacity.max_points
         o = cfg.ba.ring_obs
         f32 = dict(dtype=torch.float32, device=device)
         i32 = dict(dtype=torch.int32, device=device)
         return MapState(
-            points=torch.zeros((m, 3), **f32),
-            n_points=torch.zeros((), **i32),
-            obs_u=torch.zeros((o,), **f32),
-            obs_v=torch.zeros((o,), **f32),
-            obs_ur=torch.full((o,), -1.0, **f32),
-            obs_pid=torch.full((o,), -1, **i32),
-            obs_fid=torch.full((o,), -1, **i32),
-            obs_cursor=torch.zeros((), **i32),
+            points=torch.zeros(lead + (m, 3), **f32),
+            n_points=torch.zeros(lead, **i32),
+            obs_u=torch.zeros(lead + (o,), **f32),
+            obs_v=torch.zeros(lead + (o,), **f32),
+            obs_ur=torch.full(lead + (o,), -1.0, **f32),
+            obs_pid=torch.full(lead + (o,), -1, **i32),
+            obs_fid=torch.full(lead + (o,), -1, **i32),
+            obs_cursor=torch.zeros(lead, **i32),
         )
 
 
@@ -120,13 +125,31 @@ def from_numpy(tree, device) -> VoState:
 
 def to_numpy(state: VoState) -> VoState:
     """The port's VoState -> the same structure with numpy leaves."""
-    def n(x):
-        return x.detach().cpu().numpy()
+    return _map_leaves(lambda x: x.detach().cpu().numpy(), state)
 
-    levels, grads = state.prev_pyramid
-    return VoState(
-        features=FeatureSet(*(n(a) for a in state.features)),
-        map=MapState(*(n(a) for a in state.map)),
-        prev_pyramid=(tuple(n(l) for l in levels), tuple((n(a), n(b)) for a, b in grads)),
-        **{f: n(getattr(state, f)) for f in VoState._fields[3:]},
+
+def _map_leaves(fn, *states: VoState) -> VoState:
+    """fn over corresponding leaves of the states, pyramid included."""
+    pyrs = [s.prev_pyramid for s in states]
+    levels = tuple(fn(*ls) for ls in zip(*(p[0] for p in pyrs)))
+    grads = tuple(
+        (fn(*(g[0] for g in gs)), fn(*(g[1] for g in gs)))
+        for gs in zip(*(p[1] for p in pyrs))
     )
+    return VoState(
+        features=FeatureSet(*(fn(*xs) for xs in zip(*(s.features for s in states)))),
+        map=MapState(*(fn(*xs) for xs in zip(*(s.map for s in states)))),
+        prev_pyramid=(levels, grads),
+        **{f: fn(*(getattr(s, f) for s in states)) for f in VoState._fields[3:]},
+    )
+
+
+def stack(states) -> VoState:
+    """S single-stream states -> one batched state, leaves (S, ...)."""
+    return _map_leaves(lambda *xs: torch.stack(xs), *states)
+
+
+def unstack(state: VoState) -> list[VoState]:
+    """One batched state -> its S single-stream states."""
+    S = state.frame_id.shape[0]
+    return [_map_leaves(lambda x, s=s: x[s], state) for s in range(S)]

@@ -225,7 +225,7 @@ def test_fused_step_from_svo_tpu_state(svo):
 
 def test_fused_run_chunked_matches_svo_tpu(svo):
     seq, cam, cfg = _pipe()
-    rt = TStereoVO(cfg, cam, chunk=12, kf_cadence=6, lk_engine="fused").run_chunked(list(seq))
+    rt = TStereoVO(cfg, cam, chunk=12, kf_cadence=6, device="cpu", lk_engine="fused").run_chunked(list(seq))
     live_j, live_t = svo["run_metrics"][1:, 2], rt.metrics[1:, 2]
     assert live_j.min() > 40 and live_t.min() > 40
     assert live_t.mean() > 0.7 * live_j.mean(), (live_t.mean(), live_j.mean())
@@ -242,7 +242,7 @@ def test_fused_run_chunked_matches_svo_tpu(svo):
 def test_stereo_vo_rejects_unknown_engine():
     _, cam, cfg = _pipe()
     with pytest.raises(ValueError, match="lk_engine"):
-        TStereoVO(cfg, cam, lk_engine="xla")
+        TStereoVO(cfg, cam, device="cpu", lk_engine="xla")
 
 
 def test_fused_cadenced_steps_with_svo_tpu_noise(svo):

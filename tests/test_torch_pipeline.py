@@ -118,7 +118,7 @@ def test_run_chunked_matches_svo_tpu(seq):
     cam_j, cam_t = _cams(seq)
     cfg_j, cfg_t = _cfgs()
     rj = JStereoVO(cfg_j, cam_j, chunk=12, kf_cadence=6).run_chunked(frames)
-    rt = TStereoVO(cfg_t, cam_t, chunk=12, kf_cadence=6).run_chunked(frames)
+    rt = TStereoVO(cfg_t, cam_t, chunk=12, kf_cadence=6, device="cpu").run_chunked(frames)
     live_j, live_t = rj.metrics[1:, 2], rt.metrics[1:, 2]
     assert live_j.min() > 40 and live_t.min() > 40
     assert live_t.mean() > 0.7 * live_j.mean(), (live_t.mean(), live_j.mean())
@@ -194,7 +194,7 @@ def test_cadenced_step_makes_no_host_sync(seq, monkeypatch, lk_engine):
     frames = list(seq)[:7]
     _, cam_t = _cams(seq)
     _, cfg_t = _cfgs()
-    vo = TStereoVO(cfg_t, cam_t, chunk=6, kf_cadence=6, lk_engine=lk_engine)
+    vo = TStereoVO(cfg_t, cam_t, chunk=6, kf_cadence=6, device="cpu", lk_engine=lk_engine)
     vo.start(frames[0][1], frames[0][2])
     lefts = torch.from_numpy(np.stack([f[1] for f in frames[1:]]).astype(np.uint8))
     rights = torch.from_numpy(np.stack([f[2] for f in frames[1:]]).astype(np.uint8))
@@ -213,4 +213,4 @@ def test_ba_and_orb_not_ported(seq):
     _, cam_t = _cams(seq)
     cfg = TConfig(ba=dataclasses.replace(TConfig().ba, enabled=True))
     with pytest.raises(NotImplementedError, match="A12"):
-        TStereoVO(cfg, cam_t)
+        TStereoVO(cfg, cam_t, device="cpu")
