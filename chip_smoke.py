@@ -8,12 +8,17 @@ sources in the checkout (nvcc, sm_90a) and holds each against its plain
 PyTorch version at the main path's shapes: KLT patch extraction
 (klt_patches) and the fused LK level (lk_level), for one stream and for a
 stack of 8 streams in one launch (which must equal 8 single launches bit
-for bit) at every level's shape, and the capability probes (svo_tpu_torch/probe.py). It runs small
+for bit) at every level's shape; the whole-call launch of lk_level (all
+pyramid levels of a tracker call in one launch) at the temporal, stereo and
+forward-backward shapes, which must equal the chain of per-level launches
+bit for bit and be the faster of the two; and the capability probes
+(svo_tpu_torch/probe.py). It runs small
 card-vs-CPU agreement checks with both KLT engines, single-stream and
 batched. Then the two main paths on bench.py's 97-frame 376x1241 synthetic
 sequence, chunk 12 and keyframe cadence 6, each once per engine
-(lk_engine="patches", svo_tpu's default, through klt_patches; "fused",
-through lk_level) with accuracy and launch-count checks:
+(lk_engine="patches", svo_tpu's default, through klt_patches, one launch
+per level; "fused", through lk_level, one launch per tracker call) with
+accuracy and launch-count checks:
 StereoVO.run_chunked (one stream), and BatchedStereoVO.process_chunk with 8
 streams in lockstep, even streams forward and odd streams reversed, where a
 kernel must be launched exactly as often as for one stream. Warm runs of
@@ -26,9 +31,9 @@ device it exits non-zero before printing a result. The last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -36,11 +41,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from svo_tpu_torch._measure import device_events, median_ms, smi_line
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SHAPE = (376, 1241)  # KITTI seq 00 image size, as bench.py
 N_FRAMES = 97        # 1 bootstrap frame + 8 chunks of 12, as bench.py
 ATE_LIMIT_M = 0.273  # the OpenCV reference pipeline's ATE on this sequence
-REPS = 25            # timing samples per measurement (median reported)
 ENGINES = ("patches", "fused")
 STREAMS = 8          # batched main path: streams in lockstep, as bench.py
 CHUNK, CADENCE = 12, 6
@@ -53,31 +59,9 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def median_ms(fn, reps: int = REPS, inner: int = 10) -> float:
-    """Median over `reps` samples of the mean time of `inner` back-to-back
-    calls, from CUDA events, after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        samples.append(start.elapsed_time(end) / inner)
-    return float(np.median(samples))
-
-
 def phase_device() -> tuple[str, str]:
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(f"device: {name} | count {torch.cuda.device_count()} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
     print(smi)  # name, power limit: exactly as nvidia-smi prints them
@@ -123,7 +107,9 @@ def phase_build() -> None:
 
 def phase_kernel(frame) -> dict:
     """Kernel against its plain version at every level of the temporal and
-    stereo calls, with ~40% dead slots and corners at and past the borders."""
+    stereo calls, with ~40% dead slots and corners at and past the borders;
+    at level 0 also through the wrapper's conversions (int64 corners;
+    strided corners and a strided valid), which only run on the card."""
     from svo_tpu_torch.ops import klt
     from svo_tpu_torch.ops.klt_patches import (
         extract_klt_patches, extract_klt_patches_ref,
@@ -160,6 +146,18 @@ def phase_kernel(frame) -> dict:
             ms = median_ms(lambda: extract_klt_patches(*args))
             plain = median_ms(lambda: extract_klt_patches_ref(*args))
             bound = bound_klt_patches(valid, py, px)
+            if lvl == 0:
+                # what the wrapper converts before the launch: int64 corners;
+                # corners and valid that are strided views of wider tensors
+                wide = [torch.stack([c, c.flip(0)], dim=1)[:, 0] for c in (*corners, valid)]
+                check(not any(t.is_contiguous() for t in wide), "the views under test are contiguous")
+                for what, alt in (("int64 corners", [c.long() for c in corners] + [valid]),
+                                  ("strided corners and valid", wide)):
+                    conv = extract_klt_patches(prev, gx, gy, curr, *alt, py, px)
+                    cerr = max(float((g - w).abs().max()) for g, w in zip(conv, want))
+                    print(f"kernel klt_patches {kind:8s} L0 with {what}: max|diff| {cerr}")
+                    check(cerr == 0.0, f"{kind} L0 with {what}: differs from plain by {cerr}")
+                    worst = max(worst, cerr)
             rows.append(dict(kind=kind, level=lvl, H=H, W=W, N=n, py=py, px=px,
                              ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound))
             print(f"kernel klt_patches {kind:8s} L{lvl} {H}x{W} N={n} {py}x{px}: "
@@ -370,6 +368,206 @@ def phase_batched_kernels(frames) -> dict:
     return out
 
 
+def _track_inputs(frames, S: int, kind: str, cfg, seed: int):
+    """(args, kw) of one lk_fused.lk_track_pyramid call at the main path's
+    shapes, on the card: the padded pyramids of S rendered (left, right)
+    frames (prev: left frame t; curr: left frame t+1, or the right frame t
+    for kind "stereo"; kind "fb" is the level-0 forward-backward call), the
+    detector's corners as features, a leading (S,) on everything unless S
+    is 1. The first four slots are pinned at and past the borders, ~25% of
+    the slots are dead and the incoming flow is random within +-0.25 px at
+    the top level's scale."""
+    from svo_tpu_torch.ops import klt
+    from svo_tpu_torch.ops.detect import detect_fast
+
+    lead = (lambda a: a[0]) if S == 1 else (lambda a: a)
+    prev = lead(torch.from_numpy(np.stack([f[0] for f in frames[:S]])).cuda())
+    if kind == "stereo":
+        params, n = cfg.stereo_klt, 192
+        curr = lead(torch.from_numpy(np.stack([f[1] for f in frames[:S]])).cuda())
+    else:
+        params, n = cfg.temporal_klt, 128
+        if kind == "fb":
+            params = dataclasses.replace(params, max_level=0, max_iters=8)
+        curr = lead(torch.from_numpy(np.stack([f[0] for f in frames[1:S + 1]])).cuda())
+    prev_levels, grads = klt.KltTracker.build_pyramid(prev, params.max_level)
+    curr_levels, _ = klt.KltTracker.build_pyramid(curr, params.max_level)
+    pos, _, valid = detect_fast(prev, 20.0, None, cfg)
+    pos, valid = pos[..., :n, :].contiguous(), valid[..., :n].contiguous()
+    rng = np.random.default_rng(seed)
+    H, W = prev.shape[-2:]
+    pos[..., :4, :] = torch.tensor(
+        [[0.0, 0.0], [W - 1.0, H - 1.0], [-50.0, H + 50.0], [W + 50.0, -50.0]]).cuda()
+    valid[..., :4] = True
+    valid &= torch.from_numpy(rng.random(tuple(valid.shape)) >= 0.25).cuda()
+    guess0 = torch.from_numpy(
+        rng.uniform(-0.25, 0.25, tuple(pos.shape)).astype(np.float32)).cuda()
+    pys = [klt._level_rows(params.window, lv.shape[-2]) for lv in prev_levels]
+    for lv, py in zip(prev_levels, pys):
+        check(klt._fused_level_ok(*lv.shape[-2:], py, params.window, params.margin_x),
+              f"{kind}: level {tuple(lv.shape)} does not take the fused engine")
+    kw = dict(window=params.window, pys=pys, iters=[params.max_iters] * len(pys),
+              eps=params.eps, min_eig_threshold=params.min_eig_threshold,
+              margin_x=params.margin_x, margin_y=klt._MY, pad_x=klt._PAD_X, pad_y=klt._PAD_Y)
+    return (prev_levels, grads, curr_levels, pos, guess0, valid), kw
+
+
+def phase_lk_track(frames) -> dict:
+    """The whole-call launch of lk_level (every pyramid level of a tracker
+    call in one launch) at the main path's shapes: temporal (window 21, 4
+    levels, N=128), stereo (window 11, margin_x 16, 4 levels, N=192) and the
+    forward-backward call (1 level), for one stream and for 8 in one launch,
+    on _track_inputs (the detector's corners, four slots pinned at and past
+    the borders, ~25% dead slots, a random incoming flow).
+
+    Held against lk_track_pyramid_ref, its plain version: status equal on
+    >= 99% of the slots; a dead slot's d equal to its incoming flow at
+    level 0's scale exactly, its min_eig 0; a second launch bit-identical;
+    and d, where both track, within 1e-3 px on EVERY slot that has settled.
+    A slot has settled when the plain version with four times the
+    iterations at every level ends within 0.1 px of where it ends with the
+    tracker's count. The few that have not (mistracks still moving by 2-6
+    px when their 8 iterations are up: on them an iteration does not
+    contract, so the two roundings of the window sums drift apart, ~10x at
+    level 0 where measured) are at most 1% of the tracked slots and stay
+    within 1e-2 px. Where a slot passes 1e-3 px, its flow is printed level
+    by level, kernel beside plain, with how far it still moves.
+    BIT-EQUAL to the chain of per-level
+    launches with the glue between levels in tensor ops; every stream of the
+    8-stream launch bit-equal to its single-stream launch.
+
+    Timed, in turns within this call (chain, whole, whole, chain; CUDA
+    events, median of 25): the wall of one tracker call through the chain
+    of per-level wrapper calls and through the whole-call wrapper. The
+    whole-call wall must be the lower one at every shape, one stream and
+    8. The device time of a whole-call launch is read from the profiler's
+    kernel records over 20 launches. The bound is the sum of the levels'
+    bounds with the slots live at each level in this run."""
+    from svo_tpu_torch.config import Config
+    from svo_tpu_torch.ops.lk_fused import (
+        lk_track_level, lk_track_level_ref, lk_track_pyramid, lk_track_pyramid_chain,
+        lk_track_pyramid_ref,
+    )
+
+    cfg = Config(use_orb=False, image_height=SHAPE[0], image_width=SHAPE[1])
+    pairs = [f[1:] for f in frames[: STREAMS + 1]]
+    out = {"max_abs_err": 0.0}
+    for S in (1, STREAMS):
+        for seed, kind in enumerate(("temporal", "stereo", "fb")):
+            args, kw = _track_inputs(pairs, S, kind, cfg, 10 * S + seed)
+            pos, guess0, valid = args[3:]
+            n_levels = len(kw["pys"])
+            live = []  # slots live entering each level, coarse to fine
+            flows = {lk_track_level: [], lk_track_level_ref: []}  # d leaving each level
+
+            def recorded(level_fn):
+                def fn(*a, **k):
+                    res = level_fn(*a, **k)
+                    flows[level_fn].append(res[0])
+                    return res
+                return fn
+
+            def counted(*a, **k):
+                live.append(a[6])
+                return recorded(lk_track_level)(*a, **k)
+
+            def chain(level_fn=lk_track_level):
+                return lk_track_pyramid_chain(level_fn, *args, **kw)
+
+            def whole():
+                return lk_track_pyramid(*args, **kw)
+
+            before = lk_track_pyramid.launches, lk_track_level.launches
+            got = whole()
+            check((lk_track_pyramid.launches, lk_track_level.launches)
+                  == (before[0] + 1, before[1]), "a whole tracker call is one launch")
+            again = whole()
+            by_level = chain(counted)
+            want = lk_track_pyramid_ref(*args, **kw)
+            torch.cuda.synchronize()
+            (d, me, st), (d_r, me_r, st_r) = got, want
+            tag = (f"kernel lk_level whole call S={S} {kind:8s} {n_levels} levels "
+                   f"N={valid.shape[-1]} w={kw['window']} m={kw['margin_x']}/{kw['margin_y']}")
+            equal_chain = all(torch.equal(g, c) for g, c in zip(got, by_level))
+            repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+            flags = float((st == st_r).float().mean())
+            ok = st & st_r
+            n_ok = int(ok.sum())
+            diff = (d - d_r)[ok].abs().amax(dim=-1)
+            err = float(diff.max()) if n_ok else 0.0
+            close = float((diff <= 1e-3).float().mean()) if n_ok else 1.0
+            # how far plain still moves with 4x the iterations: settled or not
+            d_long = lk_track_pyramid_ref(*args, **{**kw, "iters": [4 * i for i in kw["iters"]]})[0]
+            moves = (d_long - d_r)[ok].abs().amax(dim=-1)
+            settled = moves <= 0.1
+            err_settled = float(diff[settled].max()) if bool(settled.any()) else 0.0
+            dead = ~valid
+            dead_exact = bool(
+                torch.equal(d[dead], guess0[dead] * 2.0 ** n_levels)
+                and not st[dead].any() and not me[dead].any()
+            )
+            line = (f"{tag}: bit-equal to the chain of per-level launches {equal_chain} | "
+                    f"status agrees with plain {flags:.4f} | max|d diff| {err:.3g} px over "
+                    f"{n_ok} tracked of {int(valid.sum())} live, {close:.4f} of them within "
+                    f"1e-3 px; {int(settled.sum())} settled, max|d diff| {err_settled:.3g} px "
+                    f"over those | dead slots exact {dead_exact} "
+                    f"| repeat bit-identical {repeat}")
+            if err > 1e-3:
+                # the slot furthest from plain, level by level, coarse to fine
+                lk_track_pyramid_chain(recorded(lk_track_level_ref), *args, **kw)
+                slot = tuple(ok.nonzero()[int(diff.argmax())].tolist())
+                per_level = [float((a[slot] - b[slot]).abs().max())
+                             for a, b in zip(flows[lk_track_level], flows[lk_track_level_ref])]
+                line += (f" | slot {slot}, |d kernel - d plain| leaving each level, coarse to "
+                         f"fine: {' '.join(f'{v:.3g}' for v in per_level)} px; plain moves it "
+                         f"{float(moves[int(diff.argmax())]):.3g} px further with 4x the iterations")
+            if S > 1:
+                singles = [lk_track_pyramid(
+                    [lv[s] for lv in args[0]], [(gx[s], gy[s]) for gx, gy in args[1]],
+                    [lv[s] for lv in args[2]], pos[s], guess0[s], valid[s], **kw)
+                    for s in range(S)]
+                same = all(torch.equal(g[s], o) for s, one in enumerate(singles)
+                           for g, o in zip(got, one))
+                line += f" | each stream bit-equal to its single launch {same}"
+                check(same, f"{tag}: a stream differs from its single launch")
+                # a strided view of a larger stack must be copied, not misread
+                wide = [torch.stack([lv, lv.flip(0)], dim=1)[:, 0] for lv in args[0]]
+                check(not wide[0].is_contiguous(), "the view under test is contiguous")
+                strided = lk_track_pyramid(wide, *args[1:], **kw)
+                check(all(torch.equal(a, b) for a, b in zip(got, strided)),
+                      f"{tag}: a non-contiguous level stack was misread")
+            bound = sum(bound_lk_level(v, kw["window"], kw["margin_x"], kw["margin_y"], it)[0]
+                        for v, it in zip(live, kw["iters"][::-1]))
+            turns = [median_ms(fn) for fn in (chain, whole, whole, chain)]
+            chain_ms, whole_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            plain = median_ms(lambda: lk_track_pyramid_ref(*args, **kw), reps=3, inner=1)
+            evs = [e for e in device_events(lambda: [whole() for _ in range(20)])
+                   if "lk_level_kernel" in e.key]
+            check(sum(e.count for e in evs) == 20, f"{tag}: the profiler did not see 20 launches")
+            device_us = sum(e.self_device_time_total for e in evs) / 20
+            line += (f" | wall of one call, in turns: chain {turns[0]:.4f} whole {turns[1]:.4f} "
+                     f"whole {turns[2]:.4f} chain {turns[3]:.4f} ms | device {device_us:.2f} us a "
+                     f"launch (profiler) | plain {plain:.4f} ms | "
+                     f"bound {bound:.6f} ms (bytes; live per level "
+                     f"{[int(v.sum()) for v in live]})")
+            print(line)
+            check(equal_chain, f"{tag}: differs from the chain of per-level launches")
+            check(flags >= 0.99, f"{tag}: status agrees with plain on {flags}")
+            check(n_ok >= 8 * S, f"{tag}: only {n_ok} slots tracked by both")
+            check(close >= 0.99, f"{tag}: d within 1e-3 px of plain on {close} of the slots")
+            check(err_settled <= 1e-3,
+                  f"{tag}: d differs from plain by {err_settled} px on a settled slot")
+            check(err <= 1e-2, f"{tag}: d differs from plain by {err} px")
+            check(dead_exact, f"{tag}: a dead slot moved, is tracked or has a min_eig")
+            check(repeat, f"{tag}: a second launch differs")
+            check(max(turns[1:3]) < min(turns[0], turns[3]),
+                  f"{tag}: the whole-call launch is not faster than the chain: {turns}")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out[f"{kind}_{S}"] = dict(ms=whole_ms, chain_ms=chain_ms, plain_ms=plain,
+                                      bound_ms=bound, turns=turns, device_us=device_us)
+    return out
+
+
 def phase_probe() -> dict:
     """The capability probes (svo_tpu_torch/probe.py), one line each; then
     the window-sum probe's time beside its plain version, which is one
@@ -529,9 +727,6 @@ def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     (lefts_u8, rights_u8) chunks of n frames, the first to warm up, the
     second profiled. Tensors that carry a stream axis drive the batched step,
     where a frame step serves all streams."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from svo_tpu_torch.pipeline import frontend
 
     cfg, cam = _config_and_camera(seq, "cuda")
@@ -539,11 +734,7 @@ def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     gen = torch.Generator(device="cuda").manual_seed(0)
     st = frontend.make_bootstrap(cam, cfg, lk_engine)(*first)
     st = step(st, *chunks[0], gen)  # warm-up chunk
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        st = step(st, *chunks[1], gen)
-        torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev = device_events(lambda: step(st, *chunks[1], gen))
     launches = sum(e.count for e in dev)
     check(launches > 0, "the profiler saw no device activity")
     own = {}
@@ -555,26 +746,38 @@ def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     return launches / n, sum(e.self_device_time_total for e in dev) / n / 1e3, own
 
 
-def _expected_launches(n_kf: int) -> int:
-    """Launches of the path's kernel in a 97-frame cadenced run. Every
-    level qualifies for the fused engine at 376x1241, so one level is one
-    launch with either engine: (temporal levels + the fb level) per frame,
-    stereo levels per keyframe (bootstrap included). The count does not
-    depend on the number of streams: a launch serves all of them."""
+def _expected_launches(engine: str, n_kf: int) -> int:
+    """Launches of the path's kernel in a 97-frame cadenced run. patches:
+    one extraction per pyramid level, so (temporal levels + the fb level)
+    per frame and the stereo levels per keyframe (bootstrap included).
+    fused: every level qualifies at 376x1241, so a tracker call is one
+    launch: the temporal and the fb call per frame, the stereo call per
+    keyframe. The count does not depend on the number of streams: a launch
+    serves all of them."""
     from svo_tpu_torch.config import Config
 
     cfg = Config()
+    if engine == "fused":
+        return 2 * (N_FRAMES - 1) + n_kf
     per_frame = cfg.temporal_klt.max_level + 1 + 1
     per_kf = cfg.stereo_klt.max_level + 1
     return per_frame * (N_FRAMES - 1) + per_kf * n_kf
 
 
-PATH_KERNEL = {"patches": "extract_klt_patches", "fused": "lk_track_level"}
+# the wrappers that launch each kernel: lk_level has the per-level entry and
+# the whole-call entry, counted together
+WRAPPERS = {"klt_patches": ("extract_klt_patches",),
+            "lk_level": ("lk_track_level", "lk_track_pyramid")}
+PATH_KERNEL = {"patches": "klt_patches", "fused": "lk_level"}
+
+
+def _kernel_counts(counts: dict) -> dict:
+    return {k: sum(counts[w] for w in ws) for k, ws in WRAPPERS.items()}
 
 
 def _check_launches(tag, engine, counts, n_kf):
-    expected = _expected_launches(n_kf)
-    for name, count in counts.items():
+    expected = _expected_launches(engine, n_kf)
+    for name, count in _kernel_counts(counts).items():
         want = expected if name == PATH_KERNEL[engine] else 0
         check(count == want, f"{tag} {engine}: {name} launched {count} times, expected {want}")
 
@@ -739,10 +942,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs a CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from svo_tpu_torch.io.synthetic import SyntheticSequence
     from svo_tpu_torch.ops.klt_patches import extract_klt_patches
-    from svo_tpu_torch.ops.lk_fused import lk_track_level
+    from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
 
     t_start = time.perf_counter()
 
@@ -762,25 +964,27 @@ def main() -> int:
     lk = phase_lk_level(frame)
     done("single-stream kernels")
     batched = phase_batched_kernels(frames)
+    track = phase_lk_track(frames)
     probes = phase_probe()
-    done("batched kernels and probes")
+    done("batched kernels, whole-call launches and probes")
     for engine in ENGINES:
         phase_small_agreement(engine)
     for engine in ENGINES:
         phase_small_agreement_batched(engine)
     done("small agreement runs")
-    kernels = [extract_klt_patches, lk_track_level]
+    kernels = [extract_klt_patches, lk_track_level, lk_track_pyramid]
     single = phase_main_path(kernels, frames, seq)
     done("single-stream main path")
     multi = phase_batched_main_path(kernels, frames, seq)
     done("batched main path")
 
-    def row(name, source, replaces, rows, wrapper, engine, key):
+    def row(name, source, replaces, rows, engine, key):
         """One kernel's line: its numbers at the temporal level-0 shape of
         one stream, and of the 8-stream launch beside them."""
         r0 = next(r for r in rows["rows"] if r["kind"] == "temporal" and r["level"] == 0)
         b = batched[key]
-        n_single, n_batched = single[engine][wrapper], multi[engine][wrapper]
+        n_single = _kernel_counts(single[engine])[name]
+        n_batched = _kernel_counts(multi[engine])[name]
         check(n_single > 0 and n_batched > 0, f"{name} was not launched on a main path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -793,13 +997,24 @@ def main() -> int:
             "batched_plain_ms": b["plain_ms"], "batched_bound_ms": b["bound_ms"],
         }
 
+    # the whole temporal tracker call in one lk_level launch, beside the
+    # chain of per-level launches it replaces on the main path
+    lk_row = row("lk_level", "svo_tpu_torch/csrc/lk_level.cu", "svo_tpu/ops/lk_pallas.py:432",
+                 lk, "fused", "lk_level_temporal")
+    lk_row["max_abs_err"] = max(lk_row["max_abs_err"], track["max_abs_err"])
+    for suffix, t in (("", track["temporal_1"]), ("_batched", track[f"temporal_{STREAMS}"])):
+        lk_row[f"track{suffix}_ms"] = t["ms"]
+        lk_row[f"track_chain{suffix}_ms"] = t["chain_ms"]
+        lk_row[f"track_plain{suffix}_ms"] = t["plain_ms"]
+        lk_row[f"track_bound{suffix}_ms"] = t["bound_ms"]
+        lk_row[f"track_device{suffix}_us"] = t["device_us"]
+
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": [
         row("klt_patches", "svo_tpu_torch/csrc/klt_patches.cu", "svo_tpu/ops/klt_pallas.py:139",
-            kern, "extract_klt_patches", "patches", "klt_patches_temporal"),
-        row("lk_level", "svo_tpu_torch/csrc/lk_level.cu", "svo_tpu/ops/lk_pallas.py:432",
-            lk, "lk_track_level", "fused", "lk_level_temporal"),
+            kern, "patches", "klt_patches_temporal"),
+        lk_row,
         {
             "name": "probe", "route": "cuda", "source": "svo_tpu_torch/csrc/probe.cu",
             "replaces": "scripts/probe_mosaic.py:26", "launches": probes["launches"],

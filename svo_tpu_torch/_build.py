@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-The kernels in csrc/*.cu (KLT patch extraction, the fused LK level, the
+The kernels in csrc/*.cu (KLT patch extraction, the fused LK tracker, the
 capability probes) are compiled with nvcc for Hopper (sm_90a), one nvcc
 process per source and all started together, and linked into one shared
 library with a plain C interface, loaded with ctypes. The library goes to
@@ -93,7 +93,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.svo_klt_patches.argtypes = [
-            p, p, p, p, i, i, i, p, p, i, i, i, p, p, p, p, p,
+            p, p, p, p, i, i, i, p, p, p, p, p, i, i, i, p, p,
         ]
         lib.svo_klt_patches.restype = i
         # eps2 and min_eig_threshold are C floats: without c_float ctypes
@@ -102,6 +102,12 @@ def load() -> ctypes.CDLL:
             p, p, p, p, i, i, i, p, p, p, i, i, i, i, i, i, f, f, p, p,
         ]
         lib.svo_lk_level.restype = i
+        # the level table: host arrays of device pointers and of ints
+        lib.svo_lk_track.argtypes = [
+            ctypes.POINTER(p), ctypes.POINTER(i), i, i, p, p, p, i, i, i, i,
+            f, f, f, f, p, p,
+        ]
+        lib.svo_lk_track.restype = i
         lib.svo_probe.argtypes = [i, p, p, p, i, p]
         lib.svo_probe.restype = i
         lib.svo_cuda_error_string.argtypes = [i]

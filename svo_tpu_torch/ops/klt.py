@@ -10,10 +10,19 @@ and a per-feature convergence mask (converged features stop moving, as
 cv2's eps exit).
 
 engine="fused" runs svo_tpu's other engine, the fused LK level
-(ops/lk_fused.py, svo_tpu/ops/lk_pallas.py): at every level that passes
-svo_tpu's rule for it (_fused_level_ok), extraction, template sampling and
-all iterations are one launch that returns flow and flags only. Levels
-that fail the rule take the patch path, as they do in svo_tpu.
+(ops/lk_fused.py, svo_tpu/ops/lk_pallas.py). Which levels take it is
+svo_tpu's rule (_fused_level_ok). The maximal run of consecutive levels
+that ends at level 0 and passes the rule is ONE call of
+lk_fused.lk_track_pyramid, so one kernel launch on the card: extraction,
+template sampling, all iterations of every level of the run and the glue
+between levels, returning the level-0 flow, min_eig and status only. At
+376x1241 every level is in the run, so a temporal or a stereo call is one
+launch and the level-0 forward-backward call another. Levels above the run
+(small top levels that fail the rule, as L3 at 128x384) go one by one: the
+patch path, or lk_fused.lk_track_level for a level that passes the rule
+with a failing one below it. A tracker call on the card is bound by the
+host's launches, not by bytes or operations, which is why the level loop
+lives in the kernel.
 
 One difference to the CPU path of svo_tpu: that path slices dead slots'
 patches like live ones, while the extraction kernel (here, and svo_tpu's
@@ -22,7 +31,7 @@ positions whose status is True carry meaning in either.
 
 The stream axis: every function takes leading axes before the feature axis
 (pos (..., N, 2), valid (..., N), pyramid levels (..., H, W)), so S streams
-are tracked by the same ops as one, and each extraction or fused level is
+are tracked by the same ops as one, and each extraction or fused run is
 one kernel launch for all of them.
 """
 
@@ -162,6 +171,74 @@ def _clip_off(off: torch.Tensor, max_x: float, max_y: float) -> torch.Tensor:
     )
 
 
+def _patch_level(
+    img_prev, gx, gy, img_curr, p_lvl, p_pad, guess, status, *, w: int, py: int, px: int,
+    margin_x: int, iters: int, eps2: float, min_eig_threshold: float,
+):
+    """One level of the patches engine: extraction, template blend, the 2x2
+    system and `iters` masked updates. Returns (d, status, min_eig)."""
+    H, W = img_prev.shape[-2:]     # padded dims (see build_pyramid)
+    Ht, Wt = H - 2 * _PAD_Y, W - 2 * _PAD_X  # true level dims
+    half = (w - 1) / 2.0
+    max_off_x = px - w - 1.0
+    max_off_y = py - w - 1.0
+
+    ty0, tx0, cy0, cx0 = _corners(p_pad, guess, H, W, py, px, w, margin_x)
+    t_patch, gx_patch, gy_patch, c_patch = extract_klt_patches(
+        img_prev, gx, gy, img_curr, ty0, tx0, cy0, cx0, status, py=py, px=px,
+    )
+
+    # fractional window offsets inside the patches
+    t_base = torch.stack([tx0, ty0], -1).to(torch.float32)
+    c_base = torch.stack([cx0, cy0], -1).to(torch.float32)
+    t_off = p_pad - half - t_base
+    t_in = _in_box(t_off, max_off_x, max_off_y)
+    t_off_cl = _clip_off(t_off, max_off_x, max_off_y)
+
+    T = _blend(t_patch, t_off_cl, w)
+    Tx = _blend(gx_patch, t_off_cl, w)
+    Ty = _blend(gy_patch, t_off_cl, w)
+
+    # 2x2 normal matrix, once per level (like cv2)
+    a11 = torch.sum(Tx * Tx, dim=(-2, -1))
+    a12 = torch.sum(Tx * Ty, dim=(-2, -1))
+    a22 = torch.sum(Ty * Ty, dim=(-2, -1))
+    tr_half = (a11 + a22) * 0.5
+    disc = torch.sqrt(torch.clamp(tr_half * tr_half - (a11 * a22 - a12 * a12), min=0.0))
+    min_eig = (tr_half - disc) / float(w * w)
+    det = a11 * a22 - a12 * a12
+    solvable = (min_eig > min_eig_threshold) & (det > 1e-12)
+
+    status = status & t_in & solvable
+
+    inv_det = 1.0 / torch.where(det > 1e-12, det, 1.0)
+    i11 = a22 * inv_det
+    i12 = -a12 * inv_det
+    i22 = a11 * inv_det
+
+    # iterate: current window at p_lvl + d, converged features frozen
+    d = guess
+    conv = torch.zeros(d.shape[:-1], dtype=torch.bool, device=d.device)
+    for _ in range(iters):
+        c_off = p_pad + d - half - c_base
+        in_patch = _in_box(c_off, max_off_x, max_off_y)
+        Iw = _blend(c_patch, _clip_off(c_off, max_off_x, max_off_y), w)
+        diff = Iw - T
+        b1 = torch.sum(diff * Tx, dim=(-2, -1))
+        b2 = torch.sum(diff * Ty, dim=(-2, -1))
+        du = -(i11 * b1 + i12 * b2)
+        dv = -(i12 * b1 + i22 * b2)
+        active = (~conv) & in_patch
+        d = torch.where(active[..., None], d + torch.stack([du, dv], dim=-1), d)
+        conv = conv | (du * du + dv * dv < eps2) | (~in_patch)
+
+    # lost if the final window left the patch (~left the search region)
+    # or the TRUE image at this level
+    inside_patch = _in_box(p_pad + d - half - c_base, max_off_x, max_off_y, lo=-1.0)
+    status = status & _inside(p_lvl + d, Wt, Ht) & inside_patch
+    return d, status, min_eig
+
+
 def _track_impl(
     prev_levels, curr_levels, prev_grad_levels, pos, valid, init,
     window: int, max_level: int, max_iters: int, eps: float,
@@ -171,110 +248,79 @@ def _track_impl(
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r} is not one of {ENGINES}")
     w = window
-    half = (w - 1) / 2.0
     px = _patch_cols(w, margin_x)
-    eps2 = eps * eps
-    win_area = float(w * w)
-    max_off_x = px - w - 1.0
 
-    guess = init / (2.0 ** (max_level + 1))  # doubled entering the top level
+    def iters_of(level: int) -> int:
+        if level_iters is None:
+            return max_iters
+        return min(max_iters, level_iters[min(level, len(level_iters) - 1)])
+
+    # patch rows per level; 0: the level is too small for the patch and is
+    # skipped, keeping the guess chain
+    pys = []
+    for level in range(max_level + 1):
+        H, W = prev_levels[level].shape[-2:]
+        pys.append(0 if W < px + 1 else _level_rows(w, H))
+    # the fused run: levels 0 .. run-1, each passing svo_tpu's rule
+    run = 0
+    if engine == "fused":
+        while run <= min(max_level, lk_fused.MAX_LEVELS - 1) and pys[run] and _fused_level_ok(
+            *prev_levels[run].shape[-2:], pys[run], w, margin_x
+        ):
+            run += 1
+
+    # the level-0 seed at the scale above the top level: doubled on entering it
+    guess = torch.zeros_like(pos) if init is None else init / (2.0 ** (max_level + 1))
     status = valid
-    min_eig_out = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)
+    min_eig_out = None
 
-    for level in range(max_level, -1, -1):
-        if level_iters is not None:
-            iters_l = min(max_iters, level_iters[min(level, len(level_iters) - 1)])
-        else:
-            iters_l = max_iters
+    # levels above the run, one by one
+    for level in range(max_level, run - 1, -1):
         img_prev = prev_levels[level]
-        img_curr = curr_levels[level]
         gx, gy = prev_grad_levels[level]
-        H, W = img_prev.shape[-2:]     # padded dims (see build_pyramid)
-        Ht, Wt = H - 2 * _PAD_Y, W - 2 * _PAD_X  # true level dims
+        H, W = img_prev.shape[-2:]
 
         p_lvl = pos / (2.0 ** level)
         guess = guess * 2.0
-
-        # level too small for the patch: skip it, keeping the guess chain
-        py = _level_rows(w, H)
-        if py == 0 or W < px + 1:
+        py = pys[level]
+        if py == 0:
             continue
-        max_off_y = py - w - 1.0
         p_pad = torch.stack([p_lvl[..., 0] + _PAD_X, p_lvl[..., 1] + _PAD_Y], dim=-1)
 
         if engine == "fused" and _fused_level_ok(H, W, py, w, margin_x):
-            # the whole level in one launch; a level that fails the rule
-            # goes on to the patch path below, svo_tpu's own per-level choice
+            # a fused level with a failing level below it: one launch of its own
             d, min_eig, solvable, in_fin = lk_fused.lk_track_level(
-                img_prev, gx, gy, img_curr, p_pad, guess, status,
-                window=w, py=py, max_iters=iters_l, eps=eps,
+                img_prev, gx, gy, curr_levels[level], p_pad, guess, status,
+                window=w, py=py, max_iters=iters_of(level), eps=eps,
                 min_eig_threshold=min_eig_threshold,
                 margin_x=margin_x, margin_y=_MY,
             )
-            status = status & solvable
-            if level == 0:
-                min_eig_out = min_eig
-            status = status & _inside(p_lvl + d, Wt, Ht) & in_fin
-            guess = d
-            continue
-
-        ty0, tx0, cy0, cx0 = _corners(p_pad, guess, H, W, py, px, w, margin_x)
-        t_patch, gx_patch, gy_patch, c_patch = extract_klt_patches(
-            img_prev, gx, gy, img_curr, ty0, tx0, cy0, cx0, status, py=py, px=px,
-        )
-
-        # fractional window offsets inside the patches
-        t_base = torch.stack([tx0, ty0], -1).to(torch.float32)
-        c_base = torch.stack([cx0, cy0], -1).to(torch.float32)
-        t_off = p_pad - half - t_base
-        t_in = _in_box(t_off, max_off_x, max_off_y)
-        t_off_cl = _clip_off(t_off, max_off_x, max_off_y)
-
-        T = _blend(t_patch, t_off_cl, w)
-        Tx = _blend(gx_patch, t_off_cl, w)
-        Ty = _blend(gy_patch, t_off_cl, w)
-
-        # 2x2 normal matrix, once per level (like cv2)
-        a11 = torch.sum(Tx * Tx, dim=(-2, -1))
-        a12 = torch.sum(Tx * Ty, dim=(-2, -1))
-        a22 = torch.sum(Ty * Ty, dim=(-2, -1))
-        tr_half = (a11 + a22) * 0.5
-        disc = torch.sqrt(torch.clamp(tr_half * tr_half - (a11 * a22 - a12 * a12), min=0.0))
-        min_eig = (tr_half - disc) / win_area
-        det = a11 * a22 - a12 * a12
-        solvable = (min_eig > min_eig_threshold) & (det > 1e-12)
-
-        status = status & t_in & solvable
+            status = (
+                status & solvable
+                & _inside(p_lvl + d, W - 2 * _PAD_X, H - 2 * _PAD_Y) & in_fin
+            )
+        else:
+            d, status, min_eig = _patch_level(
+                img_prev, gx, gy, curr_levels[level], p_lvl, p_pad, guess, status,
+                w=w, py=py, px=px, margin_x=margin_x, iters=iters_of(level),
+                eps2=eps * eps, min_eig_threshold=min_eig_threshold,
+            )
         if level == 0:
             min_eig_out = min_eig
-
-        inv_det = 1.0 / torch.where(det > 1e-12, det, 1.0)
-        i11 = a22 * inv_det
-        i12 = -a12 * inv_det
-        i22 = a11 * inv_det
-
-        # iterate: current window at p_lvl + d, converged features frozen
-        d = guess
-        conv = torch.zeros(pos.shape[:-1], dtype=torch.bool, device=pos.device)
-        for _ in range(iters_l):
-            c_off = p_pad + d - half - c_base
-            in_patch = _in_box(c_off, max_off_x, max_off_y)
-            Iw = _blend(c_patch, _clip_off(c_off, max_off_x, max_off_y), w)
-            diff = Iw - T
-            b1 = torch.sum(diff * Tx, dim=(-2, -1))
-            b2 = torch.sum(diff * Ty, dim=(-2, -1))
-            du = -(i11 * b1 + i12 * b2)
-            dv = -(i12 * b1 + i22 * b2)
-            active = (~conv) & in_patch
-            d = torch.where(active[..., None], d + torch.stack([du, dv], dim=-1), d)
-            conv = conv | (du * du + dv * dv < eps2) | (~in_patch)
-
-        # lost if the final window left the patch (~left the search region)
-        # or the TRUE image at this level
-        inside_patch = _in_box(p_pad + d - half - c_base, max_off_x, max_off_y, lo=-1.0)
-        status = status & _inside(p_lvl + d, Wt, Ht) & inside_patch
         guess = d
 
+    if run:
+        # the whole run, down to level 0, in one launch
+        guess, min_eig_out, status = lk_fused.lk_track_pyramid(
+            prev_levels[:run], prev_grad_levels[:run], curr_levels[:run],
+            pos, guess, status, window=w, pys=pys[:run],
+            iters=[iters_of(level) for level in range(run)], eps=eps,
+            min_eig_threshold=min_eig_threshold, margin_x=margin_x, margin_y=_MY,
+            pad_x=_PAD_X, pad_y=_PAD_Y,
+        )
+
+    if min_eig_out is None:  # level 0 was too small to run
+        min_eig_out = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)
     new_pos = pos + guess
     # the final position must lie inside the level-0 image (cv2 kills these)
     H0 = prev_levels[0].shape[-2] - 2 * _PAD_Y
@@ -316,8 +362,6 @@ class KltTracker:
         "patches" (svo_tpu's default) or "fused" (see the module doc)."""
         prev_levels, prev_grads = prev_pyr
         curr_levels, _ = curr_pyr
-        if init_flow is None:
-            init_flow = torch.zeros_like(pos)
         return _track_impl(
             prev_levels,
             curr_levels,

@@ -11,6 +11,18 @@ Contract (that of the TPU kernel): for each of N features, copy the
 (cy0, cx0); each corner is clamped to [0, H-py] x [0, W-px] as
 jax.lax.dynamic_slice clamps; slots with valid == False come back zeroed.
 
+One launch covers one extraction: four images, every feature of every
+stream. The copy itself is a few microseconds on the card, so a call is
+bound by its launch and by this wrapper's host work. The wrapper therefore
+issues no device op of its own when the caller's tensors are what the
+kernel reads (int32 corners as ops/klt.py::_corners makes them, a bool
+valid, all contiguous): the four corner tensors and valid's own bytes go
+to the kernel as they lie, one (4, ..., N, py, px) buffer is allocated,
+and the four results are views of it. Anything else (int64 or strided
+corners, another mask type) is converted first. On the card px must be a
+multiple of 4 (the kernel stores 16 bytes a thread; ops/klt.py's
+_patch_cols gives multiples of 8).
+
 The stream axis: images (S, H, W) with corners and valid (S, N) give
 (S, N, py, px) patches, stream s cut from image s, in ONE launch (the TPU
 kernel's batched rule, klt_pallas.py::_extract_batched). Images (H, W)
@@ -26,27 +38,29 @@ from svo_tpu_torch.ops.index import gather_hw
 
 
 def _check(imgs, corners, valid, py: int, px: int) -> None:
-    shape = tuple(imgs[0].shape)
+    first = imgs[0]
+    shape = first.shape
     if len(shape) not in (2, 3):
-        raise ValueError(f"images must be (H, W) or (S, H, W), got {shape}")
+        raise ValueError(f"images must be (H, W) or (S, H, W), got {tuple(shape)}")
     H, W = shape[-2:]
-    for im in imgs:
-        if im.dtype != torch.float32 or tuple(im.shape) != shape:
-            raise ValueError(
-                f"images must be four float32 tensors of one shape (H, W) or "
-                f"(S, H, W), got {[(tuple(i.shape), i.dtype) for i in imgs]}"
-            )
-        if im.device != imgs[0].device:
-            raise ValueError("images lie on different devices")
-        if not im.is_contiguous():
-            raise ValueError("images must be contiguous")
-    if valid.dim() != len(shape) - 1 or tuple(valid.shape[:-1]) != shape[:-2]:
+    if any(im.dtype != torch.float32 or im.shape != shape for im in imgs):
         raise ValueError(
-            f"valid {tuple(valid.shape)} does not match images {shape}: (N,) "
+            f"images must be four float32 tensors of one shape (H, W) or "
+            f"(S, H, W), got {[(tuple(i.shape), i.dtype) for i in imgs]}"
+        )
+    if any(im.device != first.device for im in imgs):
+        raise ValueError("images lie on different devices")
+    if not all(im.is_contiguous() for im in imgs):
+        raise ValueError("images must be contiguous")
+    if valid.dim() != len(shape) - 1 or valid.shape[:-1] != shape[:-2]:
+        raise ValueError(
+            f"valid {tuple(valid.shape)} does not match images {tuple(shape)}: (N,) "
             f"for (H, W) images, (S, N) for (S, H, W)"
         )
-    if tuple(corners.shape) != tuple(valid.shape) + (4,):
-        raise ValueError(f"corners {tuple(corners.shape)} / valid {tuple(valid.shape)}")
+    if any(c.shape != valid.shape for c in corners):
+        raise ValueError(
+            f"corners {[tuple(c.shape) for c in corners]} / valid {tuple(valid.shape)}"
+        )
     if not (0 < py <= H and 0 < px <= W):
         raise ValueError(f"patch {py}x{px} does not fit the {H}x{W} image")
 
@@ -76,6 +90,13 @@ def extract_klt_patches_ref(
     )
 
 
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t as the kernel reads it; t itself when it already is."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def extract_klt_patches(
     prev: torch.Tensor,
     gx: torch.Tensor,
@@ -92,33 +113,34 @@ def extract_klt_patches(
     """Extract (N, py, px) patches: prev/gx/gy at (ty0, tx0), curr at
     (cy0, cx0). Corners are (N,) integer tensors, valid (N,) bool; with
     (S, H, W) images they are (S, N) and the patches (S, N, py, px), from
-    one launch whatever S is."""
+    one launch whatever S is. On the card the four results are views of
+    one buffer."""
     imgs = (prev, gx, gy, curr)
-    corners = torch.stack([ty0, tx0, cy0, cx0], dim=-1).to(torch.int32).contiguous()
+    corners = (ty0, tx0, cy0, cx0)
     _check(imgs, corners, valid, py, px)
     if prev.device.type == "cpu":
-        return extract_klt_patches_ref(*imgs, ty0, tx0, cy0, cx0, valid, py, px)
+        return extract_klt_patches_ref(*imgs, *corners, valid, py, px)
     if prev.device.type != "cuda":
         raise ValueError(f"unsupported device {prev.device}")
-    if corners.device != prev.device or valid.device != prev.device:
+    if valid.device != prev.device or any(c.device != prev.device for c in corners):
         raise ValueError("corners and valid must lie on the images' device")
+    if px % 4:
+        raise ValueError(f"the CUDA kernel stores 4 columns a thread: px={px} % 4 != 0")
     lib = _build.load()
     H, W = prev.shape[-2:]
     S = prev.shape[0] if prev.dim() == 3 else 1
     N = valid.shape[-1]
-    v = valid.to(torch.uint8).contiguous()
-    outs = [
-        torch.empty(tuple(valid.shape) + (py, px), dtype=torch.float32, device=prev.device)
-        for _ in range(4)
-    ]
+    corners = [_as(c, torch.int32) for c in corners]
+    v = _as(valid, torch.bool)  # the kernel reads a bool's byte
+    out = torch.empty((4, *valid.shape, py, px), dtype=torch.float32, device=prev.device)
     code = lib.svo_klt_patches(
-        *(im.data_ptr() for im in imgs), S, H, W, corners.data_ptr(), v.data_ptr(),
-        N, py, px, *(o.data_ptr() for o in outs),
+        prev.data_ptr(), gx.data_ptr(), gy.data_ptr(), curr.data_ptr(), S, H, W,
+        *(c.data_ptr() for c in corners), v.data_ptr(), N, py, px, out.data_ptr(),
         torch.cuda.current_stream(prev.device).cuda_stream,
     )
     _build.check(lib, code, "klt_patches")
     extract_klt_patches.launches += 1
-    return tuple(outs)
+    return out.unbind(0)
 
 
 extract_klt_patches.launches = 0  # kernel launches since the last reset

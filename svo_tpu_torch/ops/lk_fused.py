@@ -1,10 +1,33 @@
-"""One whole pyramidal-LK level per feature in one launch.
+"""The fused pyramidal-LK engine: a whole tracker call in one launch.
 
 Port of svo_tpu/ops/lk_pallas.py::lk_track_level. On a CUDA tensor the
-wrapper launches the hand-written kernel csrc/lk_level.cu; on a CPU tensor
-it runs lk_track_level_ref, the plain PyTorch version of the same level
-(the CPU tests' path, and what chip_smoke.py holds the kernel against on
-the card).
+wrappers launch the hand-written kernel csrc/lk_level.cu; on a CPU tensor
+they run the plain PyTorch versions beside them (the CPU tests' path, and
+what chip_smoke.py holds the kernel against on the card).
+
+Two entries, one kernel:
+
+- lk_track_level, the counterpart of the TPU kernel: ONE pyramid level per
+  launch (plain version lk_track_level_ref). The tracker takes it for a
+  fused level outside a run.
+- lk_track_pyramid: a run of consecutive levels, coarse to fine down to
+  level 0, in ONE launch (plain version lk_track_pyramid_ref). The TPU
+  kernel is one level per call because one call has one image shape; on
+  the card the kernel takes a table of level pointers, and what the
+  tracker did in small tensor ops between two levels (scale the position,
+  double the guess, add the level's flow, and the status) happens per
+  feature in registers. lk_track_pyramid_chain states that glue once, over
+  any per-level function: with lk_track_level_ref it is the plain version,
+  with lk_track_level it is the chain of per-level launches, to which the
+  whole-call launch is bit-equal on the card.
+
+What bounds a call on the card: neither bytes nor operations (a temporal
+call of 128 features moves ~6 MB and does ~26 Mflop over four levels) but
+its launch, this wrapper's host work, and the latency of one feature's
+serial chain through the levels. So the design is fewer launches (one a
+call), no device op in the wrapper beyond the output's allocation and two
+views, and inside the kernel async staging with the next level's templates
+copied ahead (csrc/lk_level.cu has the details and why TMA does not apply).
 
 The geometry is the TPU kernel's, not that of the patch path in ops/klt.py:
 
@@ -33,6 +56,8 @@ TPU kernel's batched rule, lk_pallas.py::_batched). Images (H, W) with
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from svo_tpu_torch import _build
@@ -40,6 +65,7 @@ from svo_tpu_torch.ops.index import gather_hw
 
 PX = 64      # lk_pallas._PX: the column budget the corners are clipped by
 _T_MAX = 2.0  # lk_pallas._TT_T - 2: the template offset's clip
+MAX_LEVELS = 8  # csrc/lk_level.cu kMaxLevels: the kernel's level table
 
 
 def _check(prev, gx, gy, curr, pos, guess, valid, *, window, py, margin_x, margin_y):
@@ -246,3 +272,124 @@ def lk_track_level(
 
 
 lk_track_level.launches = 0  # kernel launches since the last reset
+
+
+def lk_track_pyramid_chain(
+    level_fn, prev_levels, grad_levels, curr_levels, pos, guess0, valid, *,
+    window: int, pys, iters, eps: float, min_eig_threshold: float,
+    margin_x: int = 6, margin_y: int = 6, pad_x: int = 0, pad_y: int = 0,
+):
+    """A run of levels through `level_fn` (lk_track_level or its plain
+    version), one call per level from the coarsest of the run down to level
+    0, with the tracker's glue between them in tensor ops. Arguments and
+    results as lk_track_pyramid."""
+    guess, status, min_eig = guess0, valid, None
+    for level in range(len(prev_levels) - 1, -1, -1):
+        H, W = prev_levels[level].shape[-2:]
+        p_lvl = pos / (2.0 ** level)
+        guess = guess * 2.0
+        p_pad = torch.stack([p_lvl[..., 0] + pad_x, p_lvl[..., 1] + pad_y], dim=-1)
+        d, min_eig, solvable, in_fin = level_fn(
+            prev_levels[level], *grad_levels[level], curr_levels[level],
+            p_pad, guess, status, window=window, py=pys[level],
+            max_iters=iters[level], eps=eps, min_eig_threshold=min_eig_threshold,
+            margin_x=margin_x, margin_y=margin_y,
+        )
+        q = p_lvl + d
+        inside = (
+            (q[..., 0] >= 0) & (q[..., 0] < W - 2 * pad_x)
+            & (q[..., 1] >= 0) & (q[..., 1] < H - 2 * pad_y)
+        )
+        status = status & solvable & inside & in_fin
+        guess = d
+    return guess, min_eig, status
+
+
+def lk_track_pyramid_ref(prev_levels, grad_levels, curr_levels, pos, guess0, valid, **kw):
+    """Plain PyTorch version of lk_track_pyramid: the chain of
+    lk_track_level_ref calls; same arguments and results."""
+    return lk_track_pyramid_chain(
+        lk_track_level_ref, prev_levels, grad_levels, curr_levels, pos, guess0, valid, **kw
+    )
+
+
+def lk_track_pyramid(
+    prev_levels,
+    grad_levels,
+    curr_levels,
+    pos: torch.Tensor,
+    guess0: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    window: int,
+    pys,
+    iters,
+    eps: float,
+    min_eig_threshold: float,
+    margin_x: int = 6,
+    margin_y: int = 6,
+    pad_x: int = 0,
+    pad_y: int = 0,
+):
+    """Run the fused LK levels L-1 .. 0 of one tracker call in one launch.
+    Returns (d, min_eig, status): d (N, 2) the level-0 flow, min_eig (N,)
+    that of level 0, status (N,) bool.
+
+    prev_levels / curr_levels: the L padded level images, level 0 first;
+    grad_levels: L pairs (gx, gy) of the previous image's levels; pos:
+    (N, 2) level-0 positions in TRUE image coordinates (level l works at
+    pos / 2**l + (pad_x, pad_y)); guess0: (N, 2) flow in, at twice the top
+    level's scale (it is doubled on entering every level); valid: (N,)
+    bool; pys / iters: per level, the row budget and the iteration count.
+    Per level: d = guess + the level's flow; status &= solvable & in_patch
+    & (pos / 2**l + d inside the true level image, the padded size less
+    2*pad per axis); a slot whose status fell is a dead slot further down
+    and keeps its flow. With (S, H, W) levels every other argument and
+    result has the leading S too, and the card runs one launch whatever S
+    is."""
+    L = len(prev_levels)
+    if not (1 <= L <= MAX_LEVELS) or not (
+        len(grad_levels) == len(curr_levels) == len(pys) == len(iters) == L
+    ):
+        raise ValueError(
+            f"need 1..{MAX_LEVELS} levels with a gradient pair, a current image, a "
+            f"py and an iteration count each, got {L} / {len(grad_levels)} / "
+            f"{len(curr_levels)} / {len(pys)} / {len(iters)}"
+        )
+    geom = dict(window=window, margin_x=margin_x, margin_y=margin_y)
+    for level in range(L):
+        _check(prev_levels[level], *grad_levels[level], curr_levels[level],
+               pos, guess0, valid, py=pys[level], **geom)
+    kw = dict(pys=pys, iters=iters, eps=eps, min_eig_threshold=min_eig_threshold,
+              pad_x=pad_x, pad_y=pad_y, **geom)
+    if pos.device.type == "cpu":
+        return lk_track_pyramid_ref(prev_levels, grad_levels, curr_levels, pos, guess0, valid, **kw)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    if window > 32:
+        raise ValueError(f"the CUDA kernel holds windows up to 32x32, got {window}")
+    lib = _build.load()
+    S = prev_levels[0].shape[0] if prev_levels[0].dim() == 3 else 1
+    # the kernel reads image s of a level at base + s*H*W: a strided view
+    # is copied to that layout here, never read as it lies
+    imgs, dims = [], []
+    for level in range(L):
+        four = (prev_levels[level], *grad_levels[level], curr_levels[level])
+        imgs.extend(im if im.is_contiguous() else im.contiguous() for im in four)
+        dims.extend((*four[0].shape[-2:], pys[level], iters[level]))
+    pos_c, guess_c, valid_c = pos.contiguous(), guess0.contiguous(), valid.contiguous()
+    out = torch.empty((*valid.shape, 4), dtype=torch.float32, device=pos.device)
+    code = lib.svo_lk_track(
+        (ctypes.c_void_p * (4 * L))(*(im.data_ptr() for im in imgs)),
+        (ctypes.c_int * (4 * L))(*dims), L, S,
+        pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), valid.shape[-1],
+        window, margin_x, margin_y, float(pad_x), float(pad_y), eps * eps,
+        min_eig_threshold, out.data_ptr(),
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    _build.check(lib, code, "lk_level (whole call)")
+    lk_track_pyramid.launches += 1
+    return out[..., 0:2], out[..., 2], out[..., 3] > 0.5
+
+
+lk_track_pyramid.launches = 0  # kernel launches since the last reset

@@ -7,9 +7,12 @@ interpret mode), as tests/test_lk_fused_pipeline.py does, and writes npz
 files; the port runs engine="fused" / lk_engine="fused" on the CPU here.
 
 Cases and tolerances:
-(a) KltTracker.track at 128x384 (L0-L2 fused, L3 through the patches), the
-    temporal, stereo and fb cases of test_torch_klt.py: status equal on
-    >= 99% of the slots, positions within 1e-3 px where both are True.
+(a) KltTracker.track at 128x384 (L0-L2 fused in one whole-call run, L3
+    through the patches), the temporal, stereo and fb cases of
+    test_torch_klt.py, and the temporal case at 96x544, where all four
+    levels pass svo_tpu's rule and the port's tracker call is one run:
+    status equal on >= 99% of the slots, positions within 1e-3 px where
+    both are True.
 (b) One keyframe step_body from svo_tpu's fused bootstrap state with
     svo_tpu's PnP noise: pose within 1e-4, masks and ids identical, positions within
     1e-3 px.
@@ -44,6 +47,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KLT_SHAPE = (128, 384)
+WIDE_SHAPE = (96, 544)  # L3 is 132 px wide padded: every level is fused
 PIPE_SHAPE = (96, 256)
 
 _DRIVER = r"""
@@ -96,6 +100,17 @@ res["fb_in_pos"], res["fb_in_valid"], res["fb_init"] = pf, valid & sf, pos - pf
 fb = dataclasses.replace(cfg.temporal_klt, max_level=0, max_iters=8)
 res["fb_pos"], res["fb_status"] = track(l1, l0, pf, valid & sf, fb, init=pos - pf)
 
+# (a') the temporal call where every level takes the fused kernel
+H, W = @WIDE@
+seq = SyntheticSequence(n_frames=2, shape=(H, W), fx=160.0, speed=0.25, seed=11)
+(l0, _), (l1, _) = seq.frame(0), seq.frame(1)
+cfg = Config(use_orb=False, image_height=H, image_width=W)
+pos, _, valid = detect_fast(jnp.asarray(l0), 20.0, None, cfg)
+pos, valid = np.array(pos)[:64].astype(np.float32), np.array(valid)[:64]
+valid[::7] = False
+res.update(wide_l0=l0, wide_l1=l1, wide_pos=pos, wide_valid=valid)
+res["wide_out_pos"], res["wide_out_status"] = track(l0, l1, pos, valid, cfg.temporal_klt)
+
 # (b) one step from the fused bootstrap state, with this step's PnP noise
 H, W = @PIPE@
 seq = SyntheticSequence(n_frames=13, shape=(H, W), fx=120.0, speed=0.12, seed=3)
@@ -131,6 +146,7 @@ def svo(tmp_path_factory):
     """svo_tpu's fused-interpret results, from one subprocess."""
     out = tmp_path_factory.mktemp("svo_fused") / "svo_tpu_fused.npz"
     src = (_DRIVER.replace("@REPO@", repr(REPO)).replace("@KLT@", repr(KLT_SHAPE))
+           .replace("@WIDE@", repr(WIDE_SHAPE))
            .replace("@PIPE@", repr(PIPE_SHAPE)))
     env = dict(os.environ, JAX_PLATFORMS="", SVO_TPU_FUSED_INTERPRET="1")
     env.pop("SVO_TPU_FUSED_LK", None)
@@ -173,6 +189,20 @@ def test_fused_track_matches_svo_tpu(svo, case):
     )
     _status_and_pos(svo[f"{case}_pos"], svo[f"{case}_status"],
                     r.pos.numpy(), r.status.numpy(), min_tracked=40)
+
+
+def test_fused_track_all_levels_in_one_run_matches_svo_tpu(svo):
+    """96x544: the port's temporal call is ONE lk_track_pyramid run over
+    all four levels; svo_tpu runs its fused kernel level by level."""
+    params = TConfig().temporal_klt
+    prev, curr = torch.from_numpy(svo["wide_l0"]), torch.from_numpy(svo["wide_l1"])
+    r = TKlt.track(
+        TKlt.build_pyramid(prev, params.max_level), TKlt.build_pyramid(curr, params.max_level),
+        torch.from_numpy(svo["wide_pos"]), torch.from_numpy(svo["wide_valid"]), params,
+        engine="fused",
+    )
+    _status_and_pos(svo["wide_out_pos"], svo["wide_out_status"],
+                    r.pos.numpy(), r.status.numpy(), min_tracked=15)
 
 
 def _tree(z, prefix):

@@ -97,6 +97,43 @@ def test_out_of_range_corners_clamp():
     np.testing.assert_array_equal(got[0].numpy(), np.broadcast_to(imgs[0][:PY, :PX], (2, PY, PX)))
 
 
+@pytest.mark.parametrize("corners_as", ["int32", "int64", "strided", "stacked_rows"])
+def test_corner_and_mask_layouts_equal_plain_version(corners_as):
+    """The input contract: corner tensors as they come (int32 as the
+    tracker makes them, int64, strided views) and a bool valid, with the
+    (N,) and the (S, N) layout alike, give four (.., N, py, px) results
+    equal to the plain version's on int32 corners, dead slots zeroed. On
+    CPU tensors the wrapper checks and then runs the plain version, so
+    this holds the contract and the checks; the conversions the wrapper
+    makes before a launch run only on the card, where chip_smoke.py gives
+    it int64 and strided corners and a strided valid."""
+    rng = np.random.default_rng(6)
+    S, H, W, N = 2, 96, 200, 24
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (S, H, W)).astype(np.float32)) for _ in range(4)]
+    raw = [torch.from_numpy(rng.integers(-10, 220, (S, N)).astype(np.int32)) for _ in range(4)]
+    valid = torch.from_numpy(rng.random((S, N)) >= 0.3)
+    if corners_as == "int64":
+        corners = [c.long() for c in raw]
+    elif corners_as == "strided":
+        corners = [torch.stack([c, c + 1], dim=-1)[..., 0] for c in raw]
+        assert not corners[0].is_contiguous()
+    elif corners_as == "stacked_rows":  # rows of one (4, S, N) tensor
+        corners = list(torch.stack(raw).unbind(0))
+    else:
+        corners = raw
+    got = extract_klt_patches(*imgs, *corners, valid, py=PY, px=PX)
+    want = extract_klt_patches_ref(*imgs, *raw, valid, py=PY, px=PX)
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (S, N, PY, PX) and g.dtype == torch.float32
+        assert torch.equal(g, w)
+        assert not g[~valid].any()
+    one = extract_klt_patches(*(im[1] for im in imgs), *(c[1] for c in corners), valid[1],
+                              py=PY, px=PX)
+    for g, o in zip(got, one):
+        assert torch.equal(g[1], o)
+
+
 def test_wrapper_checks_inputs():
     img = torch.zeros((64, 80))
     c = torch.zeros(4, dtype=torch.int32)

@@ -212,14 +212,26 @@ def test_level_non_finite_positions_stay_in_range():
 
 
 def test_tracker_levels_take_the_fused_engine(monkeypatch):
-    """At 128x384 the temporal call runs L0-L2 fused and L3 through the
-    patches; the patches engine never calls the fused level."""
+    """At 128x384 the temporal call runs L0-L2 fused, as ONE whole-call
+    launch with no per-level call in that run, and L3 through the patches;
+    at 96x544 all four levels are the run; the level-0 forward-backward
+    call is a run of one; the patches engine calls neither entry."""
+    import dataclasses
+
     from svo_tpu_torch.config import Config
 
-    calls = []
-    real = tklt.lk_fused.lk_track_level
+    levels, runs = [], []
+    real_level = tklt.lk_fused.lk_track_level
+    real_run = tklt.lk_fused.lk_track_pyramid
     monkeypatch.setattr(tklt.lk_fused, "lk_track_level",
-                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+                        lambda *a, **k: levels.append(a[0].shape) or real_level(*a, **k))
+    monkeypatch.setattr(
+        tklt.lk_fused, "lk_track_pyramid",
+        lambda *a, **k: runs.append([lv.shape[1] for lv in a[0]]) or real_run(*a, **k))
+    patches = []
+    real_patches = tklt.extract_klt_patches
+    monkeypatch.setattr(tklt, "extract_klt_patches",
+                        lambda *a, **k: patches.append(a[0].shape[1]) or real_patches(*a, **k))
     rng = np.random.default_rng(0)
     img = torch.from_numpy(rng.uniform(0, 255, (128, 384)).astype(np.float32))
     pyr = TKlt.build_pyramid(img, 3)
@@ -227,8 +239,18 @@ def test_tracker_levels_take_the_fused_engine(monkeypatch):
     valid = torch.ones(16, dtype=torch.bool)
     params = Config().temporal_klt
     TKlt.track(pyr, pyr, pos, valid, params)
-    assert calls == []
+    assert levels == [] and runs == [] and patches == [112, 160, 256, 448]
+    del patches[:]
     TKlt.track(pyr, pyr, pos, valid, params, engine="fused")
-    assert [s[1] for s in calls] == [160, 256, 448]
+    assert runs == [[448, 256, 160]] and levels == [] and patches == [112]
+    del runs[:], patches[:]
+    fb = dataclasses.replace(params, max_level=0, max_iters=8)
+    TKlt.track(pyr, pyr, pos, valid, fb, engine="fused")
+    assert runs == [[448]] and levels == [] and patches == []
+    del runs[:]
+    wide = torch.from_numpy(rng.uniform(0, 255, (96, 544)).astype(np.float32))
+    pyr = TKlt.build_pyramid(wide, 3)
+    TKlt.track(pyr, pyr, pos, valid, params, engine="fused")
+    assert runs == [[608, 336, 200, 132]] and levels == [] and patches == []
     with pytest.raises(ValueError, match="engine"):
         TKlt.track(pyr, pyr, pos, valid, params, engine="xla")

@@ -1,11 +1,11 @@
 """The port runs without jax, PyYAML and svo_tpu.
 
 A fresh interpreter with those three blocked in sys.modules imports every
-module of svo_tpu_torch (the kernel wrappers, the batched engine and the
-probe among them) and chip_smoke.py, runs detect_fast on the CPU and
-constructs BatchedStereoVO there; chip_smoke.main() and probe.main() must
-refuse to run without a CUDA device, with a non-zero code and nothing on
-stdout.
+module of svo_tpu_torch (the kernel wrappers, the batched engine, the probe
+and the tracker timing script among them) and chip_smoke.py, runs
+detect_fast on the CPU and constructs BatchedStereoVO there;
+chip_smoke.main(), probe.main() and track_times.main() must refuse to run
+without a CUDA device, with a non-zero code and nothing on stdout.
 """
 
 import os
@@ -26,7 +26,8 @@ mods = [m.name for m in pkgutil.walk_packages(svo_tpu_torch.__path__, "svo_tpu_t
 for m in mods:
     importlib.import_module(m)
 assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
-        "svo_tpu_torch.parallel.batched", "svo_tpu_torch.probe"} <= set(mods)
+        "svo_tpu_torch.parallel.batched", "svo_tpu_torch.probe",
+        "svo_tpu_torch.track_times"} <= set(mods)
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.io.synthetic import SyntheticSequence
@@ -35,7 +36,7 @@ img = SyntheticSequence(n_frames=1, shape=(96, 256), fx=120.0, seed=3).frame(0)[
 pos, score, valid = detect_fast(torch.from_numpy(img), 20.0, None,
                                 Config(use_orb=False, image_height=96, image_width=256))
 assert pos.shape == (192, 2) and int(valid.sum()) > 10
-from svo_tpu_torch import probe
+from svo_tpu_torch import probe, track_times
 from svo_tpu_torch.geometry.camera import from_intrinsics
 from svo_tpu_torch.parallel.batched import BatchedStereoVO
 bvo = BatchedStereoVO(Config(use_orb=False, image_height=96, image_width=256),
@@ -45,6 +46,7 @@ import chip_smoke
 assert not torch.cuda.is_available()
 assert chip_smoke.main() == 1
 assert probe.main() == 1
+assert track_times.main() == 1
 print("IMPORTED", len(mods))
 """
 
