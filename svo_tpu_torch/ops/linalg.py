@@ -114,3 +114,16 @@ def smallest_eigvec_psd(
         y = cho_solve_unrolled(L, x)
         x = y / (torch.linalg.norm(y, dim=-1, keepdim=True) + 1e-20)
     return x
+
+
+def solve_spd(A: torch.Tensor, b: torch.Tensor, damp: float = 0.0) -> torch.Tensor:
+    """Solve small SPD systems (..., n, n) @ x = (..., n): closed form for
+    n = 3, an LU solve otherwise. A singular system gives inf/NaN, as
+    jnp.linalg.solve does, never an exception: solve_ex skips the check
+    that torch.linalg.solve makes (a host sync on the card)."""
+    n = A.shape[-1]
+    if damp:
+        A = A + damp * torch.eye(n, dtype=A.dtype, device=A.device)
+    if n == 3:
+        return (inv3x3(A) @ b[..., None])[..., 0]
+    return torch.linalg.solve_ex(A, b[..., None], check_errors=False)[0][..., 0]

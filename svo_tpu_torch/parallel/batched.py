@@ -24,7 +24,9 @@ import torch
 
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry.camera import Camera
+from svo_tpu_torch.ops.index import take_rows
 from svo_tpu_torch.ops.klt import ENGINES
+from svo_tpu_torch.parallel.global_opt import refine_global
 from svo_tpu_torch.pipeline import frontend
 from svo_tpu_torch.pipeline.odometry import resolve_device
 from svo_tpu_torch.pipeline.state import VoState
@@ -80,6 +82,7 @@ class BatchedStereoVO:
         self.kf_cadence = kf_cadence
         self.lk_engine = lk_engine
         self.state: VoState | None = None
+        self._refine = None
         # one generator, seeded in start(): each step draws the PnP noise of
         # all streams in one (S, hypotheses, N) call, stream s taking row s
         self.generator = torch.Generator(device=self.device)
@@ -143,15 +146,50 @@ class BatchedStereoVO:
         """(S, n_frames, 4, 4) camera-to-world trajectories."""
         return self.state.poses[:, :n_frames].cpu().numpy()
 
-    # -- global refinement: the back-end is not ported yet ----------------
+    # -- global refinement, run between chunks --------------------------
 
-    def make_refiner(self, *args, **kwargs):
-        raise NotImplementedError(
-            "make_refiner: the back-end (block BA + pose-graph consensus, "
-            "svo_tpu/parallel/global_opt.py) is not ported yet (ROADMAP item A9)"
-        )
+    def make_refiner(
+        self,
+        n_blocks: int = 4,
+        cams_per_block: int = 7,
+        n_points: int = 512,
+        n_obs: int = 2048,
+        ba_iterations: int = 12,
+        pg_iterations: int = 10,
+    ):
+        """Build the global refiner: keyframe-block BA + pose-graph consensus
+        (parallel/global_opt.refine_global) over the S streams at once,
+        updating poses, map points AND the recursive current pose, so that
+        the correction feeds back into subsequent tracking. Call refine()
+        every few chunks; the span covered is
+        (n_blocks-1)*(cams_per_block-2)+cams_per_block frames. The defaults
+        are refine_global's (span 22, 8 alternation rounds). Returns
+        state -> (state, per-stream accepted)."""
+        K_mat = self.camera.K
+        bfx = self.camera.K[0, 0] * self.camera.baseline
 
-    def refine(self):
-        raise NotImplementedError(
-            "refine: the back-end is not ported yet (ROADMAP item A9)"
-        )
+        def _refine(state: VoState):
+            res = refine_global(
+                state.map, state.poses, state.frame_id, K_mat, bfx,
+                n_blocks=n_blocks, cams_per_block=cams_per_block,
+                n_points=n_points, n_obs=n_obs,
+                ba_iterations=ba_iterations, pg_iterations=pg_iterations,
+            )
+            pose = take_rows(res.poses, state.frame_id[..., None])[..., 0, :, :]
+            new_state = state._replace(
+                map=state.map._replace(points=res.map.points), poses=res.poses, pose=pose,
+            )
+            return new_state, res.accepted
+
+        self._refine = _refine
+        return _refine
+
+    def refine(self) -> np.ndarray:
+        """Run one global-refinement sweep on every stream's trailing span.
+        Returns the per-stream acceptance verdicts (the span-cost gate)."""
+        if self.state is None:
+            raise RuntimeError("call start() first")
+        if self._refine is None:
+            self.make_refiner()
+        self.state, accepted = self._refine(self.state)
+        return accepted.cpu().numpy()

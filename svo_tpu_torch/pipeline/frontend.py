@@ -9,7 +9,8 @@ Port of svo_tpu/pipeline/frontend.py: one step per frame,
 as functions of (state, images) -> state. svo_tpu's lax.scan over a chunk
 is a Python loop over frames here. The cadenced chunk step makes no host
 round trip per frame: every data-dependent choice is a torch.where, as in
-svo_tpu. Only kf_mode="dynamic" branches on the host, once per frame.
+svo_tpu. Only kf_mode="dynamic" branches on the host, once per frame, and
+the window BA (cfg.ba.enabled) once per keyframe step.
 
 Scatters follow jax's mode="drop": rows whose index is out of range are
 written to a spare row that is then cut off (ops/index.scatter_drop), never
@@ -20,7 +21,16 @@ step. Here every function takes the state with a leading (S,) on each leaf
 and images (S, H, W), written out as leading "..." axes, so the same body
 steps one stream or S, with no loop over streams.
 
-The in-pipeline window BA (cfg.ba.enabled) is not ported yet (ROADMAP A12).
+The in-pipeline window BA (cfg.ba.enabled): on a keyframe step whose
+keyframe count has reached cfg.ba.window and is a multiple of
+cfg.ba.interval, solve_ba runs over the last cfg.ba.window keyframes and
+writes points and poses back. That rule is data (the count of kf_flags),
+where svo_tpu takes a lax.cond. The port reads `run_ba.any()` on the host,
+on keyframe steps only, and then solves for all streams at once and
+selects per stream. Computing and selecting on every keyframe step instead
+would cost `interval` times the solves (thousands of launches each) to
+save one read per keyframe step; with ba.enabled=False the step makes
+neither the read nor the solve.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ import dataclasses
 
 import torch
 
+from svo_tpu_torch.ba.solver import solve_ba
+from svo_tpu_torch.ba.window import extract_kf_window, write_back_kf
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry import se3
 from svo_tpu_torch.geometry.camera import Camera, project as camera_project
@@ -38,14 +50,6 @@ from svo_tpu_torch.ops import detect as detect_mod
 from svo_tpu_torch.ops.index import scatter_drop, take_rows
 from svo_tpu_torch.ops.klt import KltTracker
 from svo_tpu_torch.pipeline.state import FeatureSet, MapState, VoState
-
-
-def _check_cfg(cfg: Config) -> None:
-    if cfg.ba.enabled:
-        raise NotImplementedError(
-            "cfg.ba.enabled: the in-pipeline window BA is not ported yet "
-            "(ROADMAP item A12)"
-        )
 
 
 def _count(mask: torch.Tensor) -> torch.Tensor:
@@ -187,6 +191,34 @@ def _replenish(
     return _merge_features(feats, det_pos, ids, det_prio.expand(ids.shape), new_valid), mp
 
 
+def _window_ba(
+    mp: MapState, poses: torch.Tensor, kf_flags: torch.Tensor, fid: torch.Tensor,
+    camera: Camera, cfg: Config,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One keyframe-window BA solve on the live state: the map's points and
+    the trajectory after write-back (the input's where the solve did not
+    lower its cost). Non-keyframe poses in the span ride their preceding
+    keyframe's rigid correction (write_back_kf)."""
+    problem, mapping = extract_kf_window(
+        mp, poses, kf_flags, fid,
+        n_cams=cfg.ba.window, n_points=cfg.ba.max_points, n_obs=cfg.ba.max_obs,
+    )
+    res = solve_ba(
+        problem, camera.K, camera.K[0, 0] * camera.baseline,
+        iterations=cfg.ba.iterations, n_fixed=cfg.ba.n_fixed,
+        huber_delta=cfg.ba.huber_delta, reject_threshold=cfg.ba.reject_threshold,
+        init_lambda=cfg.ba.init_lambda,
+    )
+    improved = res.cost <= res.cost0
+    mp_out, poses_out = write_back_kf(
+        mp, poses, mapping, fid,
+        _select(improved, res.T_cw, problem.T_cw),
+        _select(improved, res.points, problem.points),
+        problem.pnt_valid, problem.cam_valid,
+    )
+    return mp_out.points, poses_out
+
+
 # --------------------------------------------------------------------------
 # per-frame step
 # --------------------------------------------------------------------------
@@ -219,7 +251,6 @@ def step_body(
     is skipped when no stream keyframes."""
     if kf_mode not in ("dynamic", "never", "always"):
         raise ValueError(f"kf_mode {kf_mode!r}")
-    _check_cfg(cfg)
     dev = left.device
     fid = state.frame_id + 1
     eye4 = torch.eye(4, dtype=torch.float32, device=dev)
@@ -370,6 +401,18 @@ def step_body(
 
     poses = scatter_drop(state.poses, fid[..., None], pose[..., None, :, :])
     kf_flags = scatter_drop(state.kf_flags, fid[..., None], is_kf[..., None])
+
+    # --- sliding-window bundle adjustment over the last cfg.ba.window
+    #     KEYFRAMES, every cfg.ba.interval keyframes; track-only steps carry
+    #     no BA code at all ---
+    if cfg.ba.enabled and kf_mode != "never":
+        kf_count = _count(kf_flags)
+        run_ba = is_kf & (kf_count >= cfg.ba.window) & (kf_count % cfg.ba.interval == 0)
+        if bool(run_ba.any()):  # the host read of the module docstring
+            points_ba, poses_ba = _window_ba(mp, poses, kf_flags, fid, camera, cfg)
+            mp = mp._replace(points=_select(run_ba, points_ba, mp.points))
+            poses = _select(run_ba, poses_ba, poses)
+            pose = take_rows(poses, fid[..., None])[..., 0, :, :]
     metrics_row = torch.stack(
         [
             n_tracked.to(torch.float32),
@@ -428,7 +471,6 @@ def make_cadenced_chunk_step(
     (svo_tpu's n_streams argument is read off the state here)."""
     if cadence < 1 or chunk % cadence:
         raise ValueError(f"chunk {chunk} must be a positive multiple of cadence {cadence}")
-    _check_cfg(cfg)
 
     def run_chunk(state: VoState, lefts_u8, rights_u8, generator) -> VoState:
         lead = tuple(state.frame_id.shape)  # () for one stream, (S,) batched
@@ -453,7 +495,6 @@ def make_bootstrap(camera: Camera, cfg: Config, lk_engine: str = "patches"):
     """Bootstrap: frame 0 is always a keyframe — detect, stereo-match,
     triangulate at the identity pose. Returns (left, right) -> VoState;
     (S, H, W) stacks of first frames give the batched state of S streams."""
-    _check_cfg(cfg)
 
     def bootstrap(left: torch.Tensor, right: torch.Tensor) -> VoState:
         dev = left.device

@@ -97,7 +97,8 @@ _DTYPES = {
 }
 
 
-def _tensor(a, device) -> torch.Tensor:
+def tensor(a, device=None) -> torch.Tensor:
+    """A numpy array of one of the state's dtypes (f32, i32, bool) as a tensor."""
     a = np.asarray(a)
     if a.dtype not in _DTYPES:
         raise TypeError(f"unexpected state dtype {a.dtype}")
@@ -109,7 +110,7 @@ def from_numpy(tree, device) -> VoState:
     `device`. Fields are read by name; the jax `rng` key is dropped (the
     engine's generator replaces it)."""
     def t(a):
-        return _tensor(a, device)
+        return tensor(a, device)
 
     levels, grads = tree.prev_pyramid
     return VoState(
@@ -129,7 +130,11 @@ def to_numpy(state: VoState) -> VoState:
 
 
 def _map_leaves(fn, *states: VoState) -> VoState:
-    """fn over corresponding leaves of the states, pyramid included."""
+    """fn over corresponding leaves of the states, in the order of the
+    fields (features, map, the pyramid's levels then its gradients, the
+    rest): the order jax.tree.leaves gives svo_tpu's state."""
+    features = FeatureSet(*(fn(*xs) for xs in zip(*(s.features for s in states))))
+    mp = MapState(*(fn(*xs) for xs in zip(*(s.map for s in states))))
     pyrs = [s.prev_pyramid for s in states]
     levels = tuple(fn(*ls) for ls in zip(*(p[0] for p in pyrs)))
     grads = tuple(
@@ -137,11 +142,25 @@ def _map_leaves(fn, *states: VoState) -> VoState:
         for gs in zip(*(p[1] for p in pyrs))
     )
     return VoState(
-        features=FeatureSet(*(fn(*xs) for xs in zip(*(s.features for s in states)))),
-        map=MapState(*(fn(*xs) for xs in zip(*(s.map for s in states)))),
+        features=features,
+        map=mp,
         prev_pyramid=(levels, grads),
         **{f: fn(*(getattr(s, f) for s in states)) for f in VoState._fields[3:]},
     )
+
+
+def leaves(state: VoState) -> list:
+    """Every leaf of the state in a fixed order, pyramid included."""
+    out = []
+    _map_leaves(out.append, state)
+    return out
+
+
+def unflatten(leaf_list, like: VoState) -> VoState:
+    """The state with `like`'s structure whose leaves(), in order, are
+    leaf_list."""
+    it = iter(leaf_list)
+    return _map_leaves(lambda _: next(it), like)
 
 
 def stack(states) -> VoState:

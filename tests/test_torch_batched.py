@@ -22,7 +22,7 @@ batched engine is jitted and run ONCE for the whole file (fixture `svo`).
     cadenced path and on the dynamic per-frame path; a dynamic step in
     which only one stream keyframes.
 (d) The ValueErrors of the shape checks and of chunk % kf_cadence, the
-    back-end's NotImplementedError, and the device default.
+    refiner's defaults and its call before start(), and the device default.
 """
 
 import jax
@@ -269,11 +269,18 @@ def test_shape_and_cadence_errors(data):
 
 
 def test_back_end_is_not_ported(data):
+    """The back-end is ported (test_torch_global_opt.py holds refine()
+    against svo_tpu's): make_refiner builds with svo_tpu's defaults, and
+    refine() before start() raises like the other entry points. What is
+    left raises naming its item: the mesh-sharded refiner."""
+    from svo_tpu_torch.parallel import global_opt
+
     bvo = TBatched(TConfig(**KW), _tcam(data), S, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        bvo.make_refiner()
-    with pytest.raises(NotImplementedError, match="A9"):
+    assert callable(bvo.make_refiner())
+    with pytest.raises(RuntimeError, match="start"):
         bvo.refine()
+    with pytest.raises(NotImplementedError, match="A13"):
+        global_opt.refine_global_sharded()
 
 
 @pytest.mark.parametrize("engine_cls", [TStereoVO, TBatched], ids=["StereoVO", "BatchedStereoVO"])

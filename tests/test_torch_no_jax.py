@@ -1,9 +1,10 @@
 """The port runs without jax, PyYAML and svo_tpu.
 
 A fresh interpreter with those three blocked in sys.modules imports every
-module of svo_tpu_torch (the kernel wrappers, the batched engine, the probe
-and the tracker timing script among them) and chip_smoke.py, runs
-detect_fast on the CPU and constructs BatchedStereoVO there;
+module of svo_tpu_torch (the kernel wrappers, the batched engine, the
+back-end, the checkpoint module, the probe and the tracker timing script
+among them) and chip_smoke.py, runs detect_fast on the CPU, constructs
+BatchedStereoVO there and builds its refiner;
 chip_smoke.main(), probe.main() and track_times.main() must refuse to run
 without a CUDA device, with a non-zero code and nothing on stdout.
 """
@@ -27,7 +28,9 @@ for m in mods:
     importlib.import_module(m)
 assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
         "svo_tpu_torch.parallel.batched", "svo_tpu_torch.probe",
-        "svo_tpu_torch.track_times"} <= set(mods)
+        "svo_tpu_torch.track_times", "svo_tpu_torch.ba.solver",
+        "svo_tpu_torch.ba.window", "svo_tpu_torch.ba.pose_graph",
+        "svo_tpu_torch.parallel.global_opt", "svo_tpu_torch.utils.checkpoint"} <= set(mods)
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.io.synthetic import SyntheticSequence
@@ -42,6 +45,7 @@ from svo_tpu_torch.parallel.batched import BatchedStereoVO
 bvo = BatchedStereoVO(Config(use_orb=False, image_height=96, image_width=256),
                       from_intrinsics(120.0, 120.0, 128.0, 48.0, 0.5), 2, device="cpu")
 assert (bvo.chunk, bvo.kf_cadence) == (12, 6)
+assert callable(bvo.make_refiner())
 import chip_smoke
 assert not torch.cuda.is_available()
 assert chip_smoke.main() == 1
@@ -60,4 +64,4 @@ def test_port_imports_and_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines == [lines[-1]] and lines[-1].startswith("IMPORTED")
-    assert int(lines[-1].split()[1]) >= 20
+    assert int(lines[-1].split()[1]) >= 26

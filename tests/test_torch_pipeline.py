@@ -210,7 +210,12 @@ def test_cadenced_step_makes_no_host_sync(seq, monkeypatch, lk_engine):
 
 
 def test_ba_and_orb_not_ported(seq):
+    """The window BA is ported (test_torch_backend_pipeline.py drives it):
+    an engine with ba.enabled constructs. ORB is not: the default config
+    (use_orb=True) raises at the first detection, naming its item."""
     _, cam_t = _cams(seq)
     cfg = TConfig(ba=dataclasses.replace(TConfig().ba, enabled=True))
-    with pytest.raises(NotImplementedError, match="A12"):
-        TStereoVO(cfg, cam_t, device="cpu")
+    vo = TStereoVO(cfg, cam_t, device="cpu")
+    img = np.zeros((cfg.image_height, cfg.image_width), np.float32)
+    with pytest.raises(NotImplementedError, match="A11"):
+        vo.start(img, img)
