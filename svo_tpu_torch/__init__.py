@@ -1,8 +1,10 @@
-"""svo_tpu_torch — the stereo visual-odometry front-end of svo_tpu, ported to
+"""svo_tpu_torch — the stereo visual-odometry system of svo_tpu, ported to
 PyTorch and CUDA.
 
 The package mirrors svo_tpu's layout (ops/, geometry/, pipeline/,
-parallel/, io/, eval/) so each module's counterpart is easy to find;
+parallel/, ba/, io/, eval/, utils/, viz/, runtime/) so each module's
+counterpart is easy to find, and has its own entry points
+(python3 -m svo_tpu_torch.run_synthetic, .run_kitti, .run_euroc);
 svo_tpu stays the reference the port is tested against. It imports torch
 and never jax or svo_tpu, so it runs on a machine without jax. The
 hand-written kernels (csrc/*.cu) are built with nvcc at first use (see

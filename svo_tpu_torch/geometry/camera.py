@@ -1,12 +1,15 @@
 """Pinhole camera model of a rectified stereo rig.
 
-Port of svo_tpu/geometry/camera.py (Camera, from_intrinsics, project).
+Port of svo_tpu/geometry/camera.py: Camera, from_projections,
+from_intrinsics, parse_kitti_calib (KITTI calib.txt, P2/P3), project,
+project_P, backproject.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -47,6 +50,13 @@ class Camera(NamedTuple):
         return Camera(*(t.to(device) for t in self))
 
 
+def from_projections(P_left, P_right, device=None) -> Camera:
+    """Build a Camera from two 3x4 projections (KITTI P2, P3)."""
+    P_left = torch.as_tensor(np.asarray(P_left, np.float32).reshape(3, 4), device=device)
+    P_right = torch.as_tensor(np.asarray(P_right, np.float32).reshape(3, 4), device=device)
+    return Camera(K=P_left[:, :3].clone(), P_left=P_left, P_right=P_right)
+
+
 def from_intrinsics(fx, fy, cx, cy, baseline, device=None) -> Camera:
     """Build a rectified rig from intrinsics + baseline (meters)."""
     f32 = dict(dtype=torch.float32, device=device)
@@ -57,6 +67,23 @@ def from_intrinsics(fx, fy, cx, cy, baseline, device=None) -> Camera:
     return Camera(K=K, P_left=P_left, P_right=P_right)
 
 
+def parse_kitti_calib(path: str, device=None) -> Camera:
+    """Parse a KITTI calib.txt, reading P2 and P3 (the color stereo pair)."""
+    mats = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.strip().split()
+            if not parts:
+                continue
+            key = parts[0].rstrip(":")
+            vals = np.array([float(x) for x in parts[1:]], dtype=np.float32)
+            if vals.size == 12:
+                mats[key] = vals.reshape(3, 4)
+    if "P2" not in mats or "P3" not in mats:
+        raise ValueError(f"calib file {path} missing P2/P3")
+    return from_projections(mats["P2"], mats["P3"], device=device)
+
+
 def project(K: torch.Tensor, X_cam: torch.Tensor) -> torch.Tensor:
     """Project camera-frame points (...,3) to pixels (...,2)."""
     z = X_cam[..., 2:3]
@@ -64,3 +91,20 @@ def project(K: torch.Tensor, X_cam: torch.Tensor) -> torch.Tensor:
     fx, fy = K[0, 0], K[1, 1]
     cx, cy = K[0, 2], K[1, 2]
     return torch.stack([fx * xy[..., 0] + cx, fy * xy[..., 1] + cy], dim=-1)
+
+
+def project_P(P: torch.Tensor, X_world: torch.Tensor) -> torch.Tensor:
+    """Project world points (...,3) through a 3x4 projection to pixels."""
+    Xh = torch.cat([X_world, torch.ones_like(X_world[..., :1])], dim=-1)
+    uvw = Xh @ P.T
+    w = uvw[..., 2:3]
+    return uvw[..., :2] / torch.where(torch.abs(w) < 1e-9, torch.full_like(w, 1e-9), w)
+
+
+def backproject(K: torch.Tensor, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Unproject pixels (...,2) at given depth (...) to camera-frame points."""
+    fx, fy = K[0, 0], K[1, 1]
+    cx, cy = K[0, 2], K[1, 2]
+    x = (uv[..., 0] - cx) / fx
+    y = (uv[..., 1] - cy) / fy
+    return torch.stack([x * depth, y * depth, depth], dim=-1)

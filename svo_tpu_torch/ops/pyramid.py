@@ -1,6 +1,8 @@
-"""Image pyramid and gradients for the KLT tracker.
+"""Image pyramids, gradients and box sums.
 
-Port of svo_tpu/ops/pyramid.py (pyr_down, klt_pyramid, scharr_gradients).
+Port of svo_tpu/ops/pyramid.py: the KLT pyramid (pyr_down, klt_pyramid,
+scharr_gradients) and what the ORB detector needs (resize_linear,
+scale_pyramid, sobel_gradients, box_filter).
 svo_tpu folds blur and decimation into one banded matrix product for the
 TPU's matrix unit; the port keeps its numerics, not its form: a 5-tap
 [1,4,6,4,1]/16 filter with a replicate border, sampled at every second
@@ -12,6 +14,9 @@ engine) pass through.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -86,3 +91,70 @@ def scharr_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ix = _tap_filter(_tap_filter(img, smooth, 0), diff, 1)
     iy = _tap_filter(_tap_filter(img, diff, 0), smooth, 1)
     return ix, iy
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """(n_in, n_out) linear-interpolation matrix (align_corners=False, the
+    cv2 'linear' convention), built on the host in f32 as svo_tpu builds
+    it, and kept on `device` (the level widths of a run are few; a 1241 x
+    1034 matrix is 5 MB that would otherwise cross to the card every
+    keyframe)."""
+    scale = n_in / n_out
+    src = (np.arange(n_out) + 0.5) * scale - 0.5
+    src = np.clip(src, 0, n_in - 1)
+    i0 = np.floor(src).astype(np.int64)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    f = (src - i0).astype(np.float32)
+    M = np.zeros((n_in, n_out), np.float32)
+    M[i0, np.arange(n_out)] += 1.0 - f
+    M[i1, np.arange(n_out)] += f
+    return torch.from_numpy(M).to(device)
+
+
+def resize_linear(img: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """Bilinear resize of (..., h, w) to (..., nh, nw) as svo_tpu's two
+    matrix products, (Mh^T @ img) @ Mw, in full f32 (the package turns
+    TF32 off at import)."""
+    h, w = img.shape[-2:]
+    Mh = _resize_matrix(h, nh, img.device)  # (h, nh)
+    Mw = _resize_matrix(w, nw, img.device)  # (w, nw)
+    return (Mh.T @ img) @ Mw
+
+
+def scale_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float) -> list[torch.Tensor]:
+    """Geometric pyramid for multi-scale detection (ORB's scale_factor
+    chain): level l is the image resized by 1/scale_factor**l, each side
+    at least 16 pixels."""
+    h, w = img.shape[-2:]
+    levels = [img]
+    for lvl in range(1, n_levels):
+        s = scale_factor ** lvl
+        nh, nw = max(int(round(h / s)), 16), max(int(round(w / s)), 16)
+        levels.append(resize_linear(img, nh, nw))
+    return levels
+
+
+def sobel_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """3x3 Sobel dx, dy (cv2 kernel, no scaling), replicate border."""
+    smooth = (1.0, 2.0, 1.0)
+    diff = (-1.0, 0.0, 1.0)
+    ix = _tap_filter(_tap_filter(img, smooth, 0), diff, 1)
+    iy = _tap_filter(_tap_filter(img, diff, 0), smooth, 1)
+    return ix, iy
+
+
+def box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Sliding-window sum (not mean) of (..., H, W) with zero padding,
+    separable, through a prefix sum per axis as svo_tpu computes it (rows
+    first), so that the rounding stays close to svo_tpu's."""
+    pad = size // 2
+    for dim in (-2, -1):
+        n = img.shape[dim]
+        c = torch.cumsum(img, dim=dim)
+        c = torch.cat([torch.zeros_like(c.narrow(dim, 0, 1)), c], dim=dim)
+        idx = torch.arange(n, device=img.device)
+        hi = torch.clamp(idx + (size - pad), 0, n)
+        lo = torch.clamp(idx - pad, 0, n)
+        img = c.index_select(dim, hi) - c.index_select(dim, lo)
+    return img

@@ -1,6 +1,7 @@
 """Grid-bucketed feature selection as dense per-cell top-k.
 
-Port of svo_tpu/ops/select.py (_topk_rounds, bucketed_topk, global_topk).
+Port of svo_tpu/ops/select.py (_topk_rounds, bucketed_topk, global_topk,
+global_topk_signed).
 jax.lax.top_k breaks ties by taking the lower index first, and the keys
 here tie a lot (int32 tier keys, zero scores); torch.topk promises no
 order among ties, so the port selects with a stable descending sort
@@ -110,3 +111,18 @@ def global_topk(
         [(top_i % W).to(torch.float32), (top_i // W).to(torch.float32)], dim=-1
     )
     return pos, top_scores, top_scores > 0.0
+
+
+def global_topk_signed(
+    score: torch.Tensor, max_out: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k where scores may be negative (the Harris response); -inf marks
+    non-candidates, and most keys are -inf, so the tie rule decides which
+    non-candidates fill the tail. (..., H, W) selects per leading index,
+    along that index's flattened H*W keys."""
+    W = score.shape[-1]
+    top_scores, top_i = _topk_stable(score.reshape(score.shape[:-2] + (-1,)), max_out)
+    pos = torch.stack(
+        [(top_i % W).to(torch.float32), (top_i // W).to(torch.float32)], dim=-1
+    )
+    return pos, top_scores, torch.isfinite(top_scores)

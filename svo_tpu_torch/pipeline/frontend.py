@@ -457,6 +457,50 @@ def step_body(
     )
 
 
+def _check_chunk(state: VoState, lefts_u8, rights_u8) -> None:
+    """Chunk inputs must be (K, H, W) for one stream, (K, S, H, W) for a
+    batched state of S streams."""
+    lead = tuple(state.frame_id.shape)  # () for one stream, (S,) batched
+    for name, x in (("lefts_u8", lefts_u8), ("rights_u8", rights_u8)):
+        if x.dim() != 3 + len(lead) or tuple(x.shape[1:-2]) != lead:
+            raise ValueError(
+                f"{name}: expected (K, {'S, ' if lead else ''}H, W) for a state of "
+                f"{lead[0] if lead else 'no'} streams, got {tuple(x.shape)}"
+            )
+
+
+def make_step(camera: Camera, cfg: Config, lk_engine: str = "patches"):
+    """Single-frame step with the data-dependent keyframe rule:
+    (state, left f32, right f32, generator) -> state."""
+
+    def step(state: VoState, left, right, generator) -> VoState:
+        return step_body(state, left, right, camera, cfg, kf_mode="dynamic",
+                         generator=generator, lk_engine=lk_engine)
+
+    return step
+
+
+def make_chunked_step(camera: Camera, cfg: Config, chunk: int, lk_engine: str = "patches"):
+    """Multi-frame step with the data-dependent keyframe rule: svo_tpu's
+    lax.scan of step_body(kf_mode="dynamic") over a chunk of uint8 frames,
+    as a loop. Each frame reads its keyframe decision on the host once
+    (step_body's one host read in this mode).
+
+    Returns (state, lefts_u8 (K,H,W), rights_u8, generator) -> state; a
+    batched state of S streams takes (K,S,H,W) frame-major inputs."""
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} must be positive")
+    step = make_step(camera, cfg, lk_engine)
+
+    def run_chunk(state: VoState, lefts_u8, rights_u8, generator) -> VoState:
+        _check_chunk(state, lefts_u8, rights_u8)
+        for l, r in zip(lefts_u8, rights_u8):
+            state = step(state, l.to(torch.float32), r.to(torch.float32), generator)
+        return state
+
+    return run_chunk
+
+
 def make_cadenced_chunk_step(
     camera: Camera, cfg: Config, chunk: int, cadence: int, lk_engine: str = "patches"
 ):
@@ -473,13 +517,7 @@ def make_cadenced_chunk_step(
         raise ValueError(f"chunk {chunk} must be a positive multiple of cadence {cadence}")
 
     def run_chunk(state: VoState, lefts_u8, rights_u8, generator) -> VoState:
-        lead = tuple(state.frame_id.shape)  # () for one stream, (S,) batched
-        for name, x in (("lefts_u8", lefts_u8), ("rights_u8", rights_u8)):
-            if x.dim() != 3 + len(lead) or tuple(x.shape[1:-2]) != lead:
-                raise ValueError(
-                    f"{name}: expected (K, {'S, ' if lead else ''}H, W) for a state of "
-                    f"{lead[0] if lead else 'no'} streams, got {tuple(x.shape)}"
-                )
+        _check_chunk(state, lefts_u8, rights_u8)
         for i, (l, r) in enumerate(zip(lefts_u8, rights_u8)):
             state = step_body(
                 state, l.to(torch.float32), r.to(torch.float32), camera, cfg,

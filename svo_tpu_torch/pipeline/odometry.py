@@ -65,10 +65,13 @@ class StereoVO:
         lk_engine: str = "patches",
     ):
         """Runs on the card unless device="cpu" is passed; without a CUDA
-        device the default raises. chunk > 0 enables run_chunked, which replenishes every
-        `kf_cadence` frames (frontend.make_cadenced_chunk_step); svo_tpu's
-        chunked step with the data-dependent keyframe rule (kf_cadence=0)
-        is not ported. process() and run() use the data-dependent rule.
+        device the default raises. chunk > 0 enables run_chunked: with
+        kf_cadence > 0 it replenishes every `kf_cadence` frames
+        (frontend.make_cadenced_chunk_step; chunk must be a multiple of
+        kf_cadence), with kf_cadence=0 it keeps the reference's
+        data-dependent keyframe rule inside the chunk
+        (frontend.make_chunked_step, one host read a frame). process() and
+        run() use the data-dependent rule.
         The PnP sampling draws from a torch.Generator on `device` seeded
         with `seed`. lk_engine picks the KLT engine of every tracker call:
         "patches" (svo_tpu's default) or "fused" (ops/klt.py)."""
@@ -84,13 +87,18 @@ class StereoVO:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._bootstrap = frontend.make_bootstrap(self.camera, config, lk_engine)
+        self._step = frontend.make_step(self.camera, config, lk_engine)
         self._chunk_step = None
-        if chunk:
-            if not kf_cadence:
-                raise ValueError("run_chunked needs kf_cadence > 0")
+        if chunk and kf_cadence:
+            if chunk % kf_cadence:
+                raise ValueError(
+                    f"chunk ({chunk}) must be a multiple of kf_cadence ({kf_cadence})"
+                )
             self._chunk_step = frontend.make_cadenced_chunk_step(
                 self.camera, config, chunk, kf_cadence, lk_engine
             )
+        elif chunk:
+            self._chunk_step = frontend.make_chunked_step(self.camera, config, chunk, lk_engine)
         self.state: VoState | None = None
 
     def _prep(self, img: np.ndarray, dtype=np.float32) -> np.ndarray:
@@ -113,9 +121,8 @@ class StereoVO:
     def process(self, left: np.ndarray, right: np.ndarray) -> None:
         if self.state is None:
             raise RuntimeError("call start() first")
-        self.state = frontend.step_body(
-            self.state, self._to_device(left), self._to_device(right),
-            self.camera, self.cfg, generator=self.generator, lk_engine=self.lk_engine,
+        self.state = self._step(
+            self.state, self._to_device(left), self._to_device(right), self.generator
         )
 
     def run(

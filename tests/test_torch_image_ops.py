@@ -171,7 +171,25 @@ def test_detect_identical(name, bucket):
         np.testing.assert_array_equal(_t(b), _j(a))
 
 
-def test_detect_orb_not_ported():
-    img = torch.zeros((64, 64))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tdet.detect(img, torch.zeros((4, 2)), torch.zeros(4, dtype=torch.bool), TConfig())
+def test_detect_orb_ported():
+    """detect() with Config() (the shipping ORB detector) on a fixture frame
+    returns svo_tpu's detections: the same valid positions, scores within
+    1e-4 of max |Harris| (tests/test_torch_orb.py holds the parts)."""
+    import jax
+
+    img = _kitti(5)
+    rng = np.random.default_rng(7)
+    prev = np.stack([rng.uniform(0, 320, 30), rng.uniform(0, 96, 30)], -1).astype(np.float32)
+    pv = rng.random(30) > 0.5
+    cj, ct = JConfig(), TConfig()
+    assert cj.use_orb and ct.use_orb
+    want = jax.jit(lambda i, p, v: jdet.detect(i, p, v, cj))(
+        jnp.asarray(img), jnp.asarray(prev), jnp.asarray(pv))
+    want = [np.asarray(w) for w in want]
+    got = [g.numpy() for g in tdet.detect(torch.from_numpy(img), torch.from_numpy(prev),
+                                           torch.from_numpy(pv), ct)]
+    assert got[0].shape == want[0].shape == (ct.capacity.max_detections, 2)
+    hmax = float(np.abs(want[1][want[2]]).max())
+    res = tdet.compare_orb(want, got, [], 1e-4 * hmax)
+    assert res["n_ref"] > 20 and res["flipped"] == 0, res
+    np.testing.assert_array_equal(got[2], want[2])

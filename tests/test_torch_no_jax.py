@@ -2,9 +2,12 @@
 
 A fresh interpreter with those three blocked in sys.modules imports every
 module of svo_tpu_torch (the kernel wrappers, the batched engine, the
-back-end, the checkpoint module, the probe and the tracker timing script
-among them) and chip_smoke.py, runs detect_fast on the CPU, constructs
-BatchedStereoVO there and builds its refiner;
+back-end, the checkpoint module, the probe, the tracker timing script,
+the readers and the three entry points among them) and chip_smoke.py,
+runs detect_fast and detect_orb on the CPU, constructs
+BatchedStereoVO there and builds its refiner; the EuRoC reader must ask
+for PyYAML only when it reads a sensor file, and each entry point must
+parse its arguments with the card as the default device;
 chip_smoke.main(), probe.main() and track_times.main() must refuse to run
 without a CUDA device, with a non-zero code and nothing on stdout.
 """
@@ -16,7 +19,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _DRIVER = r"""
-import sys
+import os, sys
 for name in ("jax", "yaml", "svo_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 sys.path.insert(0, @REPO@)
@@ -30,15 +33,27 @@ assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
         "svo_tpu_torch.parallel.batched", "svo_tpu_torch.probe",
         "svo_tpu_torch.track_times", "svo_tpu_torch.ba.solver",
         "svo_tpu_torch.ba.window", "svo_tpu_torch.ba.pose_graph",
-        "svo_tpu_torch.parallel.global_opt", "svo_tpu_torch.utils.checkpoint"} <= set(mods)
+        "svo_tpu_torch.parallel.global_opt", "svo_tpu_torch.utils.checkpoint",
+        "svo_tpu_torch.ops.harris", "svo_tpu_torch.io.kitti", "svo_tpu_torch.io.euroc",
+        "svo_tpu_torch.utils.metrics", "svo_tpu_torch.viz.dump", "svo_tpu_torch.runtime.loader",
+        "svo_tpu_torch.run_synthetic", "svo_tpu_torch.run_kitti",
+        "svo_tpu_torch.run_euroc"} <= set(mods)
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.io.synthetic import SyntheticSequence
-from svo_tpu_torch.ops.detect import detect_fast
+from svo_tpu_torch.ops.detect import detect_fast, detect_orb
 img = SyntheticSequence(n_frames=1, shape=(96, 256), fx=120.0, seed=3).frame(0)[0]
 pos, score, valid = detect_fast(torch.from_numpy(img), 20.0, None,
                                 Config(use_orb=False, image_height=96, image_width=256))
 assert pos.shape == (192, 2) and int(valid.sum()) > 10
+pos, score, valid = detect_orb(torch.from_numpy(img), None, Config(image_height=96, image_width=256))
+assert pos.shape == (192, 2) and int(valid.sum()) > 10
+from svo_tpu_torch.io.euroc import EurocSequence
+try:  # the sensor files need PyYAML, which is blocked here
+    EurocSequence(os.path.join(@REPO@, "tests", "fixtures", "euroc_mini"))
+    raise AssertionError("yaml was imported")
+except ImportError:
+    pass
 from svo_tpu_torch import probe, track_times
 from svo_tpu_torch.geometry.camera import from_intrinsics
 from svo_tpu_torch.parallel.batched import BatchedStereoVO
@@ -48,6 +63,9 @@ assert (bvo.chunk, bvo.kf_cadence) == (12, 6)
 assert callable(bvo.make_refiner())
 import chip_smoke
 assert not torch.cuda.is_available()
+from svo_tpu_torch import run_euroc, run_kitti, run_synthetic
+for cli, argv in ((run_synthetic, []), (run_kitti, []), (run_euroc, ["--root", "x"])):
+    assert cli.parse_args(argv).device == "cuda"  # the card unless asked
 assert chip_smoke.main() == 1
 assert probe.main() == 1
 assert track_times.main() == 1

@@ -210,12 +210,19 @@ def test_cadenced_step_makes_no_host_sync(seq, monkeypatch, lk_engine):
 
 
 def test_ba_and_orb_not_ported(seq):
-    """The window BA is ported (test_torch_backend_pipeline.py drives it):
-    an engine with ba.enabled constructs. ORB is not: the default config
-    (use_orb=True) raises at the first detection, naming its item."""
+    """Both are ported now: an engine with ba.enabled and Config()'s ORB
+    detector (its default, use_orb=True) starts and steps a frame on the
+    test sequence."""
     _, cam_t = _cams(seq)
-    cfg = TConfig(ba=dataclasses.replace(TConfig().ba, enabled=True))
+    cfg = dataclasses.replace(
+        TConfig(ba=dataclasses.replace(TConfig().ba, enabled=True)), image_height=H, image_width=W
+    )
+    assert cfg.use_orb
     vo = TStereoVO(cfg, cam_t, device="cpu")
-    img = np.zeros((cfg.image_height, cfg.image_width), np.float32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        vo.start(img, img)
+    (l0, r0), (l1, r1) = seq.frame(0), seq.frame(1)
+    vo.start(l0, r0)
+    n0 = int(vo.state.features.count())
+    vo.process(l1, r1)
+    assert n0 > 40 and int(vo.state.frame_id) == 1
+    assert bool(torch.isfinite(vo.state.pose).all())
+    assert float(vo.state.metrics[1, 1]) > 0.8
