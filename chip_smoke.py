@@ -40,7 +40,16 @@ and cadence 6 (fused) and with the data-dependent keyframe rule inside
 the chunk (patches), 8 ORB streams through BatchedStereoVO, and
 python3 -m svo_tpu_torch.run_kitti on tests/fixtures/kitti_mini as a
 process of its own; each ORB run is held to svo_tpu's own ORB accuracy
-and must launch its engine's kernel as the launch rule gives. Every phase prints its lines;
+and must launch its engine's kernel as the launch rule gives. Then the
+long runs and the distributed paths: svo_tpu_torch.soak for 241 frames
+(the observation ring wraps under the running pipeline; the window after
+the wrap, a resume bit for bit, the ATE), svo_tpu_torch.eval_worlds with
+the eight worlds forward and reversed as 16 batched streams (the first 49
+frames of each), both counted against the launch rule; and on
+torch.distributed, a world of one (NCCL) holding 8 BA shards against the
+single solve, refine_global_sharded against refine_global, MultiStereoVO
+against StereoVO, then two gloo processes sharing the card, bit-equal to
+the world of one. Every phase prints its lines;
 any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing a result. The last line is
 {"ok": true, "device": {...}}.
@@ -59,7 +68,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from svo_tpu_torch._measure import device_events, median_ms, smi_line
+from svo_tpu_torch._measure import device_events, median_ms, per_second, smi_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SHAPE = (376, 1241)  # KITTI seq 00 image size, as bench.py
@@ -77,6 +86,7 @@ ORB_ATE_LIMIT_M = {d: max(ATE_LIMIT_M, 1.25 * a) for d, a in REF_ORB_ATE_M.items
 REF_ORB_KITTI_MINI_WORST_M = 0.2303
 ENGINES = ("patches", "fused")
 STREAMS = 8          # batched main path: streams in lockstep, as bench.py
+WORLD_STREAMS = 16   # the worlds suite: 8 worlds, forward and reversed
 CHUNK, CADENCE = 12, 6
 REFINE_EVERY = 2     # chunks between refine() sweeps, as bench.py
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published peak
@@ -445,9 +455,10 @@ def phase_lk_track(frames) -> dict:
     """The whole-call launch of lk_level (every pyramid level of a tracker
     call in one launch) at the main path's shapes: temporal (window 21, 4
     levels, N=128), stereo (window 11, margin_x 16, 4 levels, N=192) and the
-    forward-backward call (1 level), for one stream and for 8 in one launch,
-    on _track_inputs (the detector's corners, four slots pinned at and past
-    the borders, ~25% dead slots, a random incoming flow).
+    forward-backward call (1 level), for one stream, for 8 in one launch
+    (the batched main path) and for 16 (the worlds suite), on _track_inputs
+    (the detector's corners, four slots pinned at and past the borders,
+    ~25% dead slots, a random incoming flow).
 
     Held against lk_track_pyramid_ref, its plain version: status equal on
     >= 99% of the slots; a dead slot's d equal to its incoming flow at
@@ -463,13 +474,13 @@ def phase_lk_track(frames) -> dict:
     by level, kernel beside plain, with how far it still moves.
     BIT-EQUAL to the chain of per-level
     launches with the glue between levels in tensor ops; every stream of the
-    8-stream launch bit-equal to its single-stream launch.
+    8- and 16-stream launches bit-equal to its single-stream launch.
 
     Timed, in turns within this call (chain, whole, whole, chain; CUDA
     events, median of 25): the wall of one tracker call through the chain
     of per-level wrapper calls and through the whole-call wrapper. The
-    whole-call wall must be the lower one at every shape, one stream and
-    8. The device time of a whole-call launch is read from the profiler's
+    whole-call wall must be the lower one at every shape, one stream, 8 and
+    16. The device time of a whole-call launch is read from the profiler's
     kernel records over 20 launches. The bound is the sum of the levels'
     bounds with the slots live at each level in this run."""
     from svo_tpu_torch.config import Config
@@ -479,9 +490,9 @@ def phase_lk_track(frames) -> dict:
     )
 
     cfg = Config(use_orb=False, image_height=SHAPE[0], image_width=SHAPE[1])
-    pairs = [f[1:] for f in frames[: STREAMS + 1]]
+    pairs = [f[1:] for f in frames[: WORLD_STREAMS + 1]]
     out = {"max_abs_err": 0.0}
-    for S in (1, STREAMS):
+    for S in (1, STREAMS, WORLD_STREAMS):
         for seed, kind in enumerate(("temporal", "stereo", "fb")):
             args, kw = _track_inputs(pairs, S, kind, cfg, 10 * S + seed)
             pos, guess0, valid = args[3:]
@@ -778,8 +789,10 @@ def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     return launches / n, sum(e.self_device_time_total for e in dev) / n / 1e3, own
 
 
-def _expected_launches(engine: str, n_kf: int) -> int:
-    """Launches of the path's kernel in a 97-frame cadenced run. patches:
+def _expected_launches(engine: str, n_kf: int, steps: int = N_FRAMES - 1) -> int:
+    """Launches of the path's kernel in a cadenced run of `steps` frame
+    steps (bench.py's 97-frame run unless given) with n_kf keyframe steps,
+    bootstraps included. patches:
     one extraction per pyramid level, so (temporal levels + the fb level)
     per frame and the stereo levels per keyframe (bootstrap included).
     fused: every level qualifies at 376x1241, so a tracker call is one
@@ -790,10 +803,10 @@ def _expected_launches(engine: str, n_kf: int) -> int:
 
     cfg = Config()
     if engine == "fused":
-        return 2 * (N_FRAMES - 1) + n_kf
+        return 2 * steps + n_kf
     per_frame = cfg.temporal_klt.max_level + 1 + 1
     per_kf = cfg.stereo_klt.max_level + 1
-    return per_frame * (N_FRAMES - 1) + per_kf * n_kf
+    return per_frame * steps + per_kf * n_kf
 
 
 # the wrappers that launch each kernel: lk_level has the per-level entry and
@@ -807,8 +820,8 @@ def _kernel_counts(counts: dict) -> dict:
     return {k: sum(counts[w] for w in ws) for k, ws in WRAPPERS.items()}
 
 
-def _check_launches(tag, engine, counts, n_kf):
-    expected = _expected_launches(engine, n_kf)
+def _check_launches(tag, engine, counts, n_kf, steps: int = N_FRAMES - 1):
+    expected = _expected_launches(engine, n_kf, steps)
     for name, count in _kernel_counts(counts).items():
         want = expected if name == PATH_KERNEL[engine] else 0
         check(count == want, f"{tag} {engine}: {name} launched {count} times, expected {want}")
@@ -1336,9 +1349,11 @@ def phase_ba_main_path(frames, seq, ate_off: float) -> None:
 
 def phase_checkpoint(staged) -> None:
     """Checkpoint on the card: 8 streams, fused engine, refine() after every
-    2 chunks. The state and the generator are saved after chunk 4; a fresh
-    engine (started with another seed) loads them; both run chunks 5-8:
-    every leaf of the two final states must be bit-equal."""
+    2 chunks. The state and the generator are saved after chunk 2; a fresh
+    engine (started with another seed) loads them; both run chunks 3-4:
+    every leaf of the two final states must be bit-equal. (Chunks 1-4 of
+    the 8, for the script's time: the soak phase resumes a single stream
+    over a live ring wrap.)"""
     import tempfile
 
     from svo_tpu_torch.parallel.batched import BatchedStereoVO
@@ -1357,7 +1372,8 @@ def phase_checkpoint(staged) -> None:
             if (i + 1) % REFINE_EVERY == 0:
                 bvo.refine()
 
-    half = len(staged.chunks) // 2
+    n = len(staged.chunks) // 2
+    half = n // 2
     a = engine(0)
     run(a, 0, half)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1367,13 +1383,13 @@ def phase_checkpoint(staged) -> None:
         b = engine(1)
         b.state = load_state(path, b.state, b.generator)
     check(all(x.is_cuda for x in leaves(b.state)), "the loaded state is not on the card")
-    run(a, half, len(staged.chunks))
-    run(b, half, len(staged.chunks))
+    run(a, half, n)
+    run(b, half, n)
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(leaves(a.state), leaves(b.state)))
     dt = _max_abs(a.state.poses, b.state.poses)
     print(f"checkpoint on the card: saved after chunk {half} ({size / 2**20:.1f} MiB), resumed in a "
-          f"fresh engine, chunks {half + 1}-{len(staged.chunks)} with refine() in the loop: every "
+          f"fresh engine, chunks {half + 1}-{n} with refine() in the loop: every "
           f"leaf bit-equal {same} | max |pose diff| {dt}")
     check(same, "a resumed run differs from the run its checkpoint was taken from")
 
@@ -1653,6 +1669,236 @@ def phase_cli_fixture() -> dict:
     check(n_records >= 12, f"run_kitti wrote {n_records} per-frame records")
     return dict(ate=ate, reader=reader, wall_s=wall)
 
+SOAK_FRAMES = 241    # 20 chunks of 12: the ring (32,768 slots) wraps once
+WORLDS_FRAMES = 49   # 4 chunks of 12 of each of the 16 sequences of 241 frames
+DIST_SHARDS = 8      # as svo_tpu_torch/multihost_ba_worker.py
+
+def phase_soak(kernels) -> dict:
+    """svo_tpu_torch.soak at 376x1241, 241 frames (20 chunks), fused,
+    refine_global every 2 chunks, a checkpoint at chunk 10 and 4 chunks
+    re-run from it in a fresh engine. ~144 observations a frame wrap the
+    32,768-slot ring once. Held: at least one wrap; the window extracted at
+    the last frame, after the wrap, holds only in-window rows; the resume
+    bit-equal; the ATE finite and under the reference CPU's 0.273 m; the
+    lk_level launches those of the launch rule over the main run and the
+    rerun."""
+    from svo_tpu_torch import soak
+    from svo_tpu_torch.ba.window import extract_window
+
+    for k in kernels:
+        k.launches = 0
+    argv = ["--frames", str(SOAK_FRAMES), "--refine-every", str(REFINE_EVERY), "--ckpt-at", "10",
+            "--resume-chunks", "4", "--lk-engine", "fused", "--device", "cuda"]
+    t0 = time.perf_counter()
+    r, vo = soak.soak(soak.parse_args(argv))
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    cap, res = r["capacity"], r["resume"]
+    st = vo.state
+    fid = int(st.frame_id)
+    prob, mapping = extract_window(st.map, st.poses, st.frame_id, n_cams=6, n_points=512, n_obs=1024)
+    ov = prob.obs_valid
+    cams = prob.obs_cam[ov]
+    in_window = bool(ov.any()) and int(mapping.frame_lo) == fid - 5 and \
+        int(cams.min()) >= 0 and int(cams.max()) <= 5
+    print(f"soak: {r['frames']} frames 376x1241 fused, refine every {REFINE_EVERY} chunks "
+          f"({r['refine']['accepted']}/{r['refine']['calls']} accepted) | ATE {r['ate_m']} m = "
+          f"{r['ate_pct_of_traveled']}% of {r['traveled_m']} m (limit {ATE_LIMIT_M}) | "
+          f"{cap['obs_written']} observations into a {cap['obs_ring']}-slot ring: "
+          f"{cap['ring_wraps']} wrap(s) | {cap['points_used']} points | window at frame {fid} after "
+          f"the wrap: {int(ov.sum())} rows, all in frames {fid - 5}-{fid}: {in_window} | resume "
+          f"from chunk {res['checkpoint_chunk']}, {res['chunks_rerun']} chunks: max |pose diff| "
+          f"{res['max_pose_diff']} | {r['fps_excl_render']:.3f} frames/s excluding rendering, "
+          f"{r['fps_device_sustained']:.3f} frames/s over {r['device_window_frames']} staged frames | "
+          f"tracked p5 {r['health']['tracked_p5']}, inlier ratio min "
+          f"{r['health']['inlier_ratio_min']} | {wall:.1f} s | launches {counts}")
+    check(cap["ring_wraps"] >= 1, f"soak: the observation ring did not wrap ({cap})")
+    check(in_window, "soak: the window extracted after the wrap holds rows outside it")
+    check(res["max_pose_diff"] == 0.0, f"soak: the resumed run differs ({res})")
+    check(r["finite"] and np.isfinite(r["ate_m"]) and r["ate_m"] < ATE_LIMIT_M,
+          f"soak: ATE {r['ate_m']} m")
+    _check_launches("soak", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    return dict(counts=counts, result=r)
+
+
+def phase_worlds(kernels) -> dict:
+    """svo_tpu_torch.eval_worlds: the eight worlds forward and reversed, 16
+    streams of one BatchedStereoVO at 376x1241, the first 49 frames of each
+    241-frame sequence, refine() every 2 chunks, no reference pipeline (the
+    script's full length; PERF.md has that run). A 49-frame sequence would
+    be another world: its loop would turn 7 degrees a frame, and at this
+    size the port loses it with either KLT engine (ROADMAP C). Held: every stream finite and still tracking
+    at its last frame, corridor-base under 0.273 m both ways, and one
+    lk_level launch per tracker call for all 16 streams (phase_lk_track
+    holds that launch against its plain version at these shapes)."""
+    from svo_tpu_torch import eval_worlds
+
+    for k in kernels:
+        k.launches = 0
+    argv = ["--frames", "241", "--limit", str(WORLDS_FRAMES), "--refine-every", str(REFINE_EVERY),
+            "--skip-ref", "--lk-engine", "fused", "--device", "cuda"]
+    t0 = time.perf_counter()
+    r, _ = eval_worlds.evaluate(eval_worlds.parse_args(argv))
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in kernels}
+    check(r["streams"] == WORLD_STREAMS,
+          f"worlds: {r['streams']} streams, phase_lk_track checks {WORLD_STREAMS}")
+    for row in r["worlds"]:
+        print(f"  worlds | {row['world']:<22} fwd ATE {row['ate_fwd_m']:.4f} m, tracked "
+              f"{row['tracked_last_fwd']} | rev ATE {row['ate_rev_m']:.4f} m, tracked "
+              f"{row['tracked_last_rev']}")
+    agg = r["refine"]["aggressive"]
+    print(f"worlds: {r['streams']} streams x {r['frames_per_world']} frames 376x1241 fused, "
+          f"refine() every {REFINE_EVERY} chunks ({r['refine']['sweeps']} sweeps; aggressive "
+          f"spans {[(a['world'], a['dir'], a['chunk'], a['accepted']) for a in agg]}) | "
+          f"{r['fps_aggregate_excl_render']:.3f} frames/s aggregate excluding rendering | "
+          f"{wall:.1f} s | launches {counts}")
+    for row in r["worlds"]:
+        for d in ("fwd", "rev"):
+            check(row[f"finite_{d}"] and np.isfinite(row[f"ate_{d}_m"]),
+                  f"worlds: {row['world']} {d} is not finite")
+            check(row[f"tracked_last_{d}"] > 0, f"worlds: {row['world']} {d} lost tracking")
+    base = r["worlds"][0]
+    check(base["world"] == "corridor-base" and max(base["ate_fwd_m"], base["ate_rev_m"]) < ATE_LIMIT_M,
+          f"worlds: corridor-base ATE {base['ate_fwd_m']} / {base['ate_rev_m']} m")
+    _check_launches("worlds", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    return dict(counts=counts, result=r)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_distributed(frames, seq) -> dict:
+    """The distributed paths on the card. In a world of one (NCCL, this
+    process): solve_ba_distributed with 8 shards against solve_ba on the
+    same problem (cameras 5e-4, points 5e-2, cost 1e-3 relative:
+    tests/test_dist_ba.py's bounds); refine_global_sharded (4 blocks)
+    against refine_global on a drifted span (poses 1e-4, ATE 1e-3:
+    tests/test_global_opt.py's bounds); MultiStereoVO against StereoVO with
+    the same seed on 13 frames of the sequence, bit-equal. Then two gloo
+    ranks, each a process holding 4 of the 8 shards with the solve on the
+    card (the gloo exchange passes through host memory on every call,
+    parallel/collective.py): both must report their shards bit-equal to the
+    one-process 8-shard solve and within the bounds of the single solve,
+    and equal this process's NCCL solve bit for bit. LM iterations/s of
+    each."""
+    import subprocess
+    import tempfile
+
+    import torch.distributed as dist
+
+    from svo_tpu_torch.ba import synthetic
+    from svo_tpu_torch.ba.solver import BAProblem, solve_ba
+    from svo_tpu_torch.eval.trajectory import ate_rmse
+    from svo_tpu_torch.parallel import ba as dist_ba
+    from svo_tpu_torch.parallel import global_opt, multihost
+    from svo_tpu_torch.parallel.multi_seq import MultiStereoVO
+    from svo_tpu_torch.pipeline.odometry import StereoVO
+
+    torch.cuda.set_device(0)
+    multihost.init(f"localhost:{_free_port()}", 1, 0, backend="nccl", timeout_s=120)
+    try:
+        it = 12
+        problem = synthetic.ba_problem(42, n_cams=6, n_pts=128, noise_px=0.3)
+        K = torch.tensor(synthetic.K_MAT, device="cuda")
+        bfx = synthetic.FX * synthetic.BASELINE
+        single_p = _to(problem, "cuda")
+        sharded = _to(dist_ba.shard_problem(problem, DIST_SHARDS), "cuda")
+        single = solve_ba(single_p, K, bfx, iterations=it)
+        one = dist_ba.solve_ba_distributed(sharded, K, bfx, iterations=it)
+        again = dist_ba.solve_ba_distributed(sharded, K, bfx, iterations=it)
+        cam_err = _max_abs(one.T_cw, single.T_cw[None])
+        pt_err = _max_abs(one.points.reshape(-1, 3), single.points)
+        cost_rel = abs(float(one.cost[0]) - float(single.cost)) / float(single.cost)
+        rates = {
+            "single": per_second(lambda: solve_ba(single_p, K, bfx, iterations=it), it),
+            "nccl_world_of_one": per_second(
+                lambda: dist_ba.solve_ba_distributed(sharded, K, bfx, iterations=it), it),
+        }
+        print(f"distributed BA, NCCL world of one, {DIST_SHARDS} shards on the card: cameras "
+              f"{cam_err:.2e} (bound 5e-4), points {pt_err:.2e} (5e-2), cost {cost_rel:.2e} "
+              f"relative (1e-3) from solve_ba | cost {float(one.cost0[0]):.2f} -> "
+              f"{float(one.cost[0]):.2f} | twice bit-identical {_bit_equal(one, again)} | "
+              f"LM iterations/s: single {rates['single']:.1f}, sharded {rates['nccl_world_of_one']:.1f}")
+        check(cam_err < 5e-4 and pt_err < 5e-2 and cost_rel < 1e-3,
+              "distributed BA on the card is outside test_dist_ba.py's bounds")
+        check(_bit_equal(one, again), "two distributed solves on the card differ")
+
+        mp, poses, gt = synthetic.drifted_state(3)
+        mp, poses = _to(mp, "cuda"), poses.to("cuda")
+        hi = torch.tensor(21, dtype=torch.int32, device="cuda")
+        kw = dict(n_blocks=4, ba_iterations=8, pg_iterations=8)
+        ref = global_opt.refine_global(mp, poses, hi, K, bfx, **kw)
+        sh = global_opt.refine_global_sharded(mp, poses, hi, K, bfx, **kw)
+        pose_err = _max_abs(sh.poses, ref.poses)
+        ate_sh, ate_ref = (float(ate_rmse(x.poses[:22].cpu().numpy(), gt)) for x in (sh, ref))
+        print(f"refine_global_sharded, world of one, 4 blocks on the card: poses {pose_err:.2e} "
+              f"from refine_global (bound 1e-4), bit-equal {_bit_equal(sh, ref)} | ATE "
+              f"{ate_sh:.4f} against {ate_ref:.4f} m | cost per observation "
+              f"{float(ref.cost_per_obs):.1f} | accepted {bool(sh.accepted)}")
+        check(pose_err < 1e-4 and abs(ate_sh - ate_ref) < 1e-3,
+              "refine_global_sharded disagrees with refine_global on the card")
+
+        cfg, cam = _config_and_camera(seq)
+        n_ms = 13
+        multi = MultiStereoVO(cfg, cam, device="cuda")
+        multi.start(frames[0][1][None], frames[0][2][None], seed=5)
+        for f in frames[1:n_ms]:
+            multi.process(f[1][None], f[2][None])
+        lone = StereoVO(cfg, cam, seed=5, device="cuda").run(frames[:n_ms])
+        same = np.array_equal(multi.trajectories(n_ms)[0], lone.poses)
+        print(f"MultiStereoVO, world of one, {n_ms} frames 376x1241 against StereoVO(seed=5): "
+              f"bit-equal {same} | fleet health {multi.fleet_health.tolist()}")
+        check(same, "MultiStereoVO's stream differs from StereoVO with the same seed")
+        check(np.array_equal(multi.fleet_health, lone.metrics[n_ms - 1]),
+              "fleet_health of a world of one is not its stream's metrics row")
+        one_T, one_pts = one.T_cw.cpu().numpy(), one.points.cpu().numpy()
+    finally:
+        dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "svo_tpu_torch.multihost_ba_worker", "--rank", str(r),
+             "--nprocs", "2", "--port", str(port), "--backend", "gloo", "--device", "cuda",
+             "--reps", "10", "--timeout", "240",
+             "--out", os.path.join(tmp, f"mh_{r}.json"), "--arrays", os.path.join(tmp, f"mh_{r}.npz")],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            errs = [p.communicate(timeout=400)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}: {errs[r][-2000:]}")
+        reps = [json.load(open(os.path.join(tmp, f"mh_{r}.json"))) for r in range(2)]
+        arrays = [np.load(os.path.join(tmp, f"mh_{r}.npz")) for r in range(2)]
+        half = DIST_SHARDS // 2
+        same_as_nccl = all(
+            np.array_equal(a["T_cw"], one_T[r * half:(r + 1) * half])
+            and np.array_equal(a["points"], one_pts[r * half:(r + 1) * half])
+            for r, a in enumerate(arrays))
+    for rep in reps:
+        print(f"  gloo rank {rep['rank']} of {rep['world']} on {rep['device']} ({rep['exchange']} "
+              f"exchange): {rep['n_local_shards']} shards, bit-equal to one process "
+              f"{rep['bit_equal_to_one_process']}, cameras {rep['cam_err_vs_single']:.2e} from the "
+              f"single solve | LM iterations/s {rep['lm_iterations_per_s']}")
+    rates["gloo_two_ranks"] = min(rep["lm_iterations_per_s"]["all_processes"] for rep in reps)
+    print(f"distributed BA, 2 gloo ranks sharing the card: ok {[rep['ok'] for rep in reps]} | "
+          f"bit-equal to this process's NCCL 8-shard solve {same_as_nccl} | "
+          f"{rates['gloo_two_ranks']:.1f} LM iterations/s")
+    check(all(rep["ok"] and rep["exchange"] == "host" for rep in reps),
+          f"a gloo rank on the card failed its checks: {reps}")
+    check(same_as_nccl, "2 gloo ranks on the card differ from the NCCL world of one")
+    return dict(lm_iterations_per_s=rates)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1714,6 +1960,12 @@ def main() -> int:
     del staged
     phase_cli_fixture()
     done("run_kitti on the KITTI fixture")
+    soak = phase_soak(kernels)
+    done("soak")
+    worlds = phase_worlds(kernels)
+    done("worlds suite")
+    phase_distributed(frames, seq)
+    done("distributed paths")
 
     def row(name, source, replaces, rows, engine, key):
         """One kernel's line: its numbers at the temporal level-0 shape of
@@ -1724,13 +1976,16 @@ def main() -> int:
         n_batched = _kernel_counts(multi[engine])[name]
         n_ship = sum(_kernel_counts(shipping[t]["counts"])[name] for t in ("a", "b"))
         n_ship += _kernel_counts(shipping_batched["counts"])[name]
+        n_soak = _kernel_counts(soak["counts"])[name]
+        n_worlds = _kernel_counts(worlds["counts"])[name]
         check(n_single > 0 and n_batched > 0 and n_ship > 0,
               f"{name} was not launched on a main path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n_single + n_batched + n_ship,
+            "launches": n_single + n_batched + n_ship + n_soak + n_worlds,
             "launches_single_stream": n_single, "launches_batched": n_batched,
-            "launches_shipping_orb": n_ship,
+            "launches_shipping_orb": n_ship, "launches_soak": n_soak,
+            "launches_worlds": n_worlds,
             "max_abs_err": max(rows["max_abs_err"], batched[f"{name}_max_abs_err"]),
             "ms": r0["ms"], "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
             "bound_by": r0.get("bound_by", "bytes"), "library_ms": None,
@@ -1743,7 +1998,8 @@ def main() -> int:
     lk_row = row("lk_level", "svo_tpu_torch/csrc/lk_level.cu", "svo_tpu/ops/lk_pallas.py:432",
                  lk, "fused", "lk_level_temporal")
     lk_row["max_abs_err"] = max(lk_row["max_abs_err"], track["max_abs_err"])
-    for suffix, t in (("", track["temporal_1"]), ("_batched", track[f"temporal_{STREAMS}"])):
+    for suffix, t in (("", track["temporal_1"]), ("_batched", track[f"temporal_{STREAMS}"]),
+                      ("_worlds", track[f"temporal_{WORLD_STREAMS}"])):
         lk_row[f"track{suffix}_ms"] = t["ms"]
         lk_row[f"track_chain{suffix}_ms"] = t["chain_ms"]
         lk_row[f"track_plain{suffix}_ms"] = t["plain_ms"]

@@ -1,12 +1,13 @@
-"""Measuring on the card: one timer, one profiler reading, the card's name.
+"""Measuring on the card: two timers, one profiler reading, the card's name.
 
-Shared by chip_smoke.py and track_times.py. Imports nothing of the package,
+Shared by chip_smoke.py, track_times.py and multihost_ba_worker.py. Imports nothing of the package,
 so track_times.py can load this file beside a package from another tree.
 """
 
 from __future__ import annotations
 
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -29,6 +30,22 @@ def median_ms(fn, reps: int = 25, inner: int = 10) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / inner)
     return float(np.median(samples))
+
+
+def per_second(fn, work: int, reps: int = 10, device="cuda") -> float:
+    """`work` units per call of fn, per second of wall over `reps` calls
+    after one warm-up, the device synchronised at both ends."""
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return work * reps / (time.perf_counter() - t0)
 
 
 def device_events(fn) -> list:

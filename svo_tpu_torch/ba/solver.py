@@ -38,6 +38,7 @@ import torch
 from svo_tpu_torch.geometry import se3
 from svo_tpu_torch.ops.index import segment_sum, segments, take_rows
 from svo_tpu_torch.ops.linalg import inv3x3
+from svo_tpu_torch.parallel.collective import sum_over_shards
 from svo_tpu_torch.pipeline.state import tensor
 
 
@@ -177,38 +178,57 @@ def solve_ba(
     huber_delta: float = 5.0,
     reject_threshold: float = 20.0,
     init_lambda: float = 1e-4,
-    axis_name: str | None = None,
+    group=None,
 ) -> BAResult:
     """LM with Schur-complement camera reduction on a windowed problem (or
     on a stack of them, see the module docstring). A singular reduced
     system moves nothing: the solve returns inf/NaN without raising
-    (solve_ex, no host sync) and the step is zeroed."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "solve_ba(axis_name=...): the point-sharded all-reduce mode of "
-            "svo_tpu/parallel/ba.py is not ported yet (ROADMAP item A13)"
-        )
+    (solve_ex, no host sync) and the step is zeroed.
+
+    Distributed mode (group: a torch.distributed process group, e.g.
+    torch.distributed.group.WORLD; svo_tpu's axis_name under shard_map):
+    the problem's one leading axis holds this rank's shards of ONE problem.
+    Observations and point slots are sharded (each shard owns all
+    observations of its points), cameras are replicated. Point
+    marginalisation is local to each shard; the reduced camera system
+    (Hcc, bc, the Schur term and its right-hand side) is the only
+    cross-shard quantity in an LM iteration and crosses in one gather
+    (parallel/collective.py: summed in global shard order), the robust cost
+    in a second. The camera step is computed alike on every rank, point
+    back-substitution stays on the owning shard. Every shard's result
+    carries the shared cameras, the global costs and n_obs."""
+    sharded = group is not None
+    if sharded and problem.cam_valid.dim() != 2:
+        raise ValueError("distributed mode takes one leading axis of shards")
     p, lead = _flatten_lead(problem)
     B, Kc, P = p.T_cw.shape[0], p.T_cw.shape[-3], p.points.shape[-2]
     obs_cam, obs_pnt, ov, fixed = _setup(p, n_fixed)
     f32, dev = p.T_cw.dtype, p.T_cw.device
 
+    def over_shards(x):
+        return sum_over_shards(x, group) if sharded else x
+
     def residuals(T_cw, points):
         return _residuals(K_mat, baseline_fx, T_cw, points, obs_cam, obs_pnt, p.obs_uv)
 
     def cost_at(T_cw, points):
-        return _robust_weights(residuals(T_cw, points)[0], ov, huber_delta, reject_threshold)[1]
+        return over_shards(
+            _robust_weights(residuals(T_cw, points)[0], ov, huber_delta, reject_threshold)[1]
+        )
 
     T_cw, points = p.T_cw, p.points
     cost0 = cost = cost_at(T_cw, points)
+    # the camera systems solved: one per problem, or the one shared by the
+    # shards (cameras are replicated, so the first shard's flags serve)
+    Bc = 1 if sharded else B
     if iterations:
         seg_c = segments(obs_cam, Kc)
         seg_p = segments(obs_pnt, P)
         seg_cp = segments(obs_cam.long() * P + obs_pnt, Kc * P)
         eye3 = torch.eye(3, dtype=f32, device=dev)
-        fixed6 = fixed.repeat_interleave(6, dim=-1)            # (B, 6K)
+        fixed6 = fixed[:Bc].repeat_interleave(6, dim=-1)       # (Bc, 6K)
         fixed66 = fixed6[:, :, None] | fixed6[:, None, :]
-    lam = torch.full((B,), init_lambda, dtype=f32, device=dev)
+    lam = torch.full((Bc,), init_lambda, dtype=f32, device=dev)
     for _ in range(iterations):
         r, J_c, J_p = residuals(T_cw, points)
         w, _ = _robust_weights(r, ov, huber_delta, reject_threshold)
@@ -236,11 +256,22 @@ def solve_ba(
         # of a stack multiplies the shapes it would alone
         Wf = Wcp.permute(0, 1, 3, 2, 4).reshape(B, Kc * 6, P * 3)
         Yf = (Wcp @ Hpp_inv[:, None]).permute(0, 1, 3, 2, 4).reshape(B, Kc * 6, P * 3)
-        Sf = -(Yf @ Wf.mT)                                      # (B,6K,6K)
-        Sf.view(B, Kc, 6, Kc, 6).diagonal(dim1=1, dim2=3).add_(Hcc.permute(0, 2, 3, 1))
+        S_off = Yf @ Wf.mT                                      # (B,6K,6K)
         # (matrix-vector products as multiply-and-sum: a stacked problem then
         # adds in the order it would alone, which bmm does not promise)
-        b_red = bc.reshape(B, Kc * 6) - (Yf * bp.reshape(B, 1, P * 3)).sum(-1)
+        yb = (Yf * bp.reshape(B, 1, P * 3)).sum(-1)
+        if sharded:
+            # the one exchange of the camera system: every camera-indexed
+            # term of every shard, summed in global shard order
+            n1, n2, n3 = Kc * 36, Kc * 42, Kc * 42 + Kc * Kc * 36
+            flat = over_shards(torch.cat(
+                [Hcc.flatten(1), bc.flatten(1), S_off.flatten(1), yb], dim=1
+            ))
+            Hcc, bc = flat[:, :n1].reshape(1, Kc, 6, 6), flat[:, n1:n2].reshape(1, Kc, 6)
+            S_off, yb = flat[:, n2:n3].reshape(1, Kc * 6, Kc * 6), flat[:, n3:]
+        Sf = -S_off
+        Sf.view(Bc, Kc, 6, Kc, 6).diagonal(dim1=1, dim2=3).add_(Hcc.permute(0, 2, 3, 1))
+        b_red = bc.reshape(Bc, Kc * 6) - yb
 
         # gauge fixing and damping
         Sf = torch.where(fixed66, 0.0, Sf)
@@ -251,12 +282,12 @@ def solve_ba(
         bf = torch.where(fixed6, 0.0, b_red)
 
         delta_c = -torch.linalg.solve_ex(Sf, bf[..., None], check_errors=False)[0]
-        delta_c = delta_c.reshape(B, Kc, 6)
+        delta_c = delta_c.reshape(Bc, Kc, 6)
         finite = torch.isfinite(delta_c).flatten(1).all(dim=-1)
         delta_c = torch.where(finite[:, None, None], delta_c, 0.0)
 
         # back-substitute points: dp = -Hpp^-1 (bp + Wcp^T dc)
-        rhs_p = bp + (Wf * delta_c.reshape(B, Kc * 6, 1)).sum(1).reshape(B, P, 3)
+        rhs_p = bp + (Wf * delta_c.reshape(Bc, Kc * 6, 1)).sum(1).reshape(B, P, 3)
         delta_p = -(Hpp_inv @ rhs_p[..., None])[..., 0]
         delta_p = torch.where(p.pnt_valid[..., None], delta_p, 0.0)
 
@@ -270,6 +301,9 @@ def solve_ba(
         points = torch.where(accept[:, None, None], pts_new, points)
         cost = torch.where(accept, new_cost, cost)
         lam = torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-9, 1e4)
+    if sharded:
+        n_obs = over_shards(torch.sum(ov.to(torch.int32), dim=-1, dtype=torch.int32))
+        return BAResult(T_cw, points, cost0.expand(B), cost.expand(B), n_obs.expand(B))
     return _result(lead, T_cw, points, cost0, cost, ov)
 
 

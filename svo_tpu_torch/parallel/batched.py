@@ -83,6 +83,8 @@ class BatchedStereoVO:
         self.lk_engine = lk_engine
         self.state: VoState | None = None
         self._refine = None
+        # the RefineResult of the last sweep (its costs say each stream's regime)
+        self.last_refine = None
         # one generator, seeded in start(): each step draws the PnP noise of
         # all streams in one (S, hypotheses, N) call, stream s taking row s
         self.generator = torch.Generator(device=self.device)
@@ -179,6 +181,7 @@ class BatchedStereoVO:
             new_state = state._replace(
                 map=state.map._replace(points=res.map.points), poses=res.poses, pose=pose,
             )
+            self.last_refine = res
             return new_state, res.accepted
 
         self._refine = _refine

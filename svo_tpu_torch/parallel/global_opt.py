@@ -31,12 +31,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from svo_tpu_torch.ba.pose_graph import PoseGraph, graph_cost, optimize_pose_graph
-from svo_tpu_torch.ba.solver import BAProblem, refine_alternate, solve_ba
+from svo_tpu_torch.ba.solver import BAProblem, BAResult, refine_alternate, solve_ba
 from svo_tpu_torch.ba.window import WindowMapping, extract_window, write_back
 from svo_tpu_torch.geometry import se3
 from svo_tpu_torch.ops.index import scatter_drop, take_rows
+from svo_tpu_torch.parallel.collective import gather_rows
 from svo_tpu_torch.pipeline.state import MapState
 
 
@@ -136,48 +138,17 @@ def refine_global(
             huber_delta, reject_threshold, recover_cost_per_obs, alt_points_only,
         )
         return RefineResult(MapState(*(x[0] for x in res.map)), *(x[0] for x in res[1:]))
-    cons_margin = 0.9
-    span = block_span(n_blocks, cams_per_block)
-    P_full = n_points * n_blocks
-    O_full = n_obs * n_blocks
-    frame_lo = frame_hi - (span - 1)
-
-    # --- conservative candidate: full-span points-only alternation ---
-    full_prob, full_map = extract_window(
-        mp, poses_wc, frame_hi, n_cams=span, n_points=P_full, n_obs=O_full
+    frame_lo = frame_hi - (block_span(n_blocks, cams_per_block) - 1)
+    span_cost, cons_points, aggressive, cost_per_obs = _conservative(
+        mp, poses_wc, frame_hi, K_mat, baseline_fx, n_blocks, cams_per_block, n_points, n_obs,
+        ba_iterations, huber_delta, reject_threshold, recover_cost_per_obs, alt_points_only,
     )
-    alt = refine_alternate(
-        full_prob, K_mat, baseline_fx, rounds=ba_iterations // 2 + 2,
-        n_fixed=1, huber_delta=huber_delta,
-        reject_threshold=min(reject_threshold, 20.0),
-        points_only=alt_points_only,
-    )
-    alt_ok = torch.isfinite(alt.cost) & (alt.cost <= alt.cost0)
-    cons_mp, _ = write_back(
-        mp, poses_wc, full_map, full_prob.T_cw,
-        torch.where(alt_ok[..., None, None], alt.points, full_prob.points),
-        full_prob.pnt_valid, full_prob.cam_valid,
-    )
-
-    def span_cost(points, poses):
-        return _span_cost(
-            full_prob, full_map, points, poses, K_mat, baseline_fx, huber_delta, reject_threshold
-        )
-
-    cost0 = span_cost(mp.points, poses_wc)
-    cost_pp = span_cost(cons_mp.points, poses_wc)
-
-    # --- regime selection: is the span consistent with its own map? ---
-    f32 = alt.cost0.dtype
-    n_obs_f = torch.clamp(alt.n_obs, min=1).to(f32)
-    aggressive = alt.cost0 > recover_cost_per_obs * n_obs_f
 
     # --- aggressive candidate: block BA + consensus, skipped when every
     #     span is healthy ---
-    lead = tuple(frame_hi.shape)
-    zero = torch.zeros(lead, dtype=f32, device=cost0.device)
-    zero_b = torch.zeros(lead + (n_blocks,), dtype=f32, device=cost0.device)
-    inf = torch.full_like(zero, torch.inf)
+    zero = torch.zeros_like(cost_per_obs)
+    zero_b = torch.zeros(tuple(frame_hi.shape) + (n_blocks,), dtype=zero.dtype, device=zero.device)
+    agg = (None, None, zero_b, zero_b, zero, zero)
     if bool(aggressive.any()):
         problems, mappings = extract_blocks(
             mp, poses_wc, frame_hi, n_blocks, cams_per_block, n_points, n_obs
@@ -192,43 +163,161 @@ def refine_global(
             n_blocks, cams_per_block, pg_iterations,
         )
         # a healthy stream keeps what svo_tpu's skipped branch returns
-        agg_points = torch.where(aggressive[..., None, None], agg_mp.points, mp.points)
-        agg_poses = torch.where(aggressive[..., None, None, None], agg_poses, poses_wc)
-        ba_cost0 = torch.where(aggressive[..., None], res.cost0, zero_b)
-        ba_cost = torch.where(aggressive[..., None], res.cost, zero_b)
-        pg_cost0 = torch.where(aggressive, pg.cost0, zero)
-        pg_cost = torch.where(aggressive, pg.cost, zero)
+        agg = (
+            torch.where(aggressive[..., None, None], agg_mp.points, mp.points),
+            torch.where(aggressive[..., None, None, None], agg_poses, poses_wc),
+            torch.where(aggressive[..., None], res.cost0, zero_b),
+            torch.where(aggressive[..., None], res.cost, zero_b),
+            torch.where(aggressive, pg.cost0, zero),
+            torch.where(aggressive, pg.cost, zero),
+        )
+    return _gated_result(
+        mp, poses_wc, frame_lo, span_cost, cons_points, aggressive, cost_per_obs, *agg
+    )
+
+
+def refine_global_sharded(
+    mp: MapState,
+    poses_wc: torch.Tensor,
+    frame_hi: torch.Tensor,
+    K_mat: torch.Tensor,
+    baseline_fx,
+    group=None,
+    n_blocks: int | None = None,
+    cams_per_block: int = 7,
+    n_points: int = 512,
+    n_obs: int = 2048,
+    ba_iterations: int = 12,
+    pg_iterations: int = 10,
+    huber_delta: float = 5.0,
+    reject_threshold: float = 100.0,
+    recover_cost_per_obs: float = 10.0,
+) -> RefineResult:
+    """The process-group variant: the keyframe blocks' BA is split over the
+    ranks of `group` (None: the default world), contiguous blocks per rank
+    in rank order; n_blocks defaults to one block per rank, as svo_tpu's
+    one block per device. The blocks' BAResults are gathered in block order
+    (parallel/collective.py). The conservative full-span alternation (points
+    only), the pose-graph consensus, the write-back and the gate run alike
+    on every rank, so every rank returns the same result. As in svo_tpu,
+    the block BA runs whatever the regime; the gate (_gated_result) is
+    refine_global's."""
+    if frame_hi.dim() == 0:
+        res = refine_global_sharded(
+            MapState(*(x[None] for x in mp)), poses_wc[None], frame_hi[None], K_mat, baseline_fx,
+            group, n_blocks, cams_per_block, n_points, n_obs, ba_iterations, pg_iterations,
+            huber_delta, reject_threshold, recover_cost_per_obs,
+        )
+        return RefineResult(MapState(*(x[0] for x in res.map)), *(x[0] for x in res[1:]))
+    group = dist.group.WORLD if group is None else group
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n_blocks = world if n_blocks is None else n_blocks
+    if n_blocks % world:
+        raise ValueError(f"{n_blocks} blocks do not split evenly over {world} ranks")
+    C = cams_per_block
+    frame_lo = frame_hi - (block_span(n_blocks, C) - 1)
+    span_cost, cons_points, aggressive, cost_per_obs = _conservative(
+        mp, poses_wc, frame_hi, K_mat, baseline_fx, n_blocks, C, n_points, n_obs,
+        ba_iterations, huber_delta, reject_threshold, recover_cost_per_obs, True,
+    )
+
+    # this rank's blocks, solved here; every block's result, in block order
+    problems, mappings = extract_blocks(mp, poses_wc, frame_hi, n_blocks, C, n_points, n_obs)
+    bd = frame_hi.dim()  # the block axis
+    per = n_blocks // world
+    mine = BAProblem(*(x.narrow(bd, rank * per, per) for x in problems))
+    res = solve_ba(
+        mine, K_mat, baseline_fx, iterations=ba_iterations, n_fixed=1,
+        huber_delta=huber_delta, reject_threshold=reject_threshold,
+    )
+    res = BAResult(*(gather_rows(x.movedim(bd, 0), group).movedim(0, bd) for x in res))
+    agg_mp, agg_poses, _, pg = _consensus_and_writeback(
+        mp, poses_wc, frame_hi, problems, mappings, res, n_blocks, C, pg_iterations,
+    )
+    return _gated_result(
+        mp, poses_wc, frame_lo, span_cost, cons_points, aggressive, cost_per_obs,
+        agg_mp.points, agg_poses, res.cost0, res.cost, pg.cost0, pg.cost,
+    )
+
+
+def _conservative(
+    mp, poses_wc, frame_hi, K_mat, baseline_fx, n_blocks, cams_per_block, n_points, n_obs,
+    ba_iterations, huber_delta, reject_threshold, recover_cost_per_obs, points_only,
+):
+    """The conservative candidate over the whole span (a points-only or
+    joint alternation against the shipped poses, written back where it did
+    not raise the cost) and the regime of each stream. Returns the span's
+    pricing function span_cost(points, poses), the candidate's map points,
+    `aggressive` and the mean initial cost per observation."""
+    full_prob, full_map = extract_window(
+        mp, poses_wc, frame_hi, n_cams=block_span(n_blocks, cams_per_block),
+        n_points=n_points * n_blocks, n_obs=n_obs * n_blocks,
+    )
+    alt = refine_alternate(
+        full_prob, K_mat, baseline_fx, rounds=ba_iterations // 2 + 2,
+        n_fixed=1, huber_delta=huber_delta,
+        reject_threshold=min(reject_threshold, 20.0),
+        points_only=points_only,
+    )
+    alt_ok = torch.isfinite(alt.cost) & (alt.cost <= alt.cost0)
+    cons_mp, _ = write_back(
+        mp, poses_wc, full_map, full_prob.T_cw,
+        torch.where(alt_ok[..., None, None], alt.points, full_prob.points),
+        full_prob.pnt_valid, full_prob.cam_valid,
+    )
+
+    def span_cost(points, poses):
+        return _span_cost(
+            full_prob, full_map, points, poses, K_mat, baseline_fx, huber_delta, reject_threshold
+        )
+
+    # --- regime selection: is the span consistent with its own map? ---
+    n_obs_f = torch.clamp(alt.n_obs, min=1).to(alt.cost0.dtype)
+    return span_cost, cons_mp.points, alt.cost0 > recover_cost_per_obs * n_obs_f, alt.cost0 / n_obs_f
+
+
+def _gated_result(
+    mp, poses_wc, frame_lo, span_cost, cons_points, aggressive, cost_per_obs,
+    agg_points, agg_poses, ba_cost0, ba_cost, pg_cost0, pg_cost, cons_margin: float = 0.9,
+) -> RefineResult:
+    """The acceptance gate shared by refine_global and
+    refine_global_sharded. span_cost(points, poses) prices a candidate over
+    the refined span; agg_points is None where no aggressive candidate was
+    computed.
+
+    AGGRESSIVE regime: both span-cost checks must pass: (a) the BA
+    objective must not regress, cost(agg poses, agg points) <= cost(orig);
+    (b) the anti-gauge-slide check, cost(agg poses, ORIGINAL points) <=
+    2 x cost(orig). A block re-solve can transport poses and points
+    coherently along weakly observable modes, the cost staying low while
+    the trajectory walks away from truth; scoring the candidate poses
+    against the unmoved map breaks that coherence.
+
+    CONSERVATIVE regime: the points-only polish applies iff it improves the
+    span cost by a real margin (>= 1 - cons_margin relative): a polish
+    within the noise floor is a no-op, not a perturbation of future PnP.
+    Poses never move in this regime."""
+    cost0 = span_cost(mp.points, poses_wc)
+    cost_pp = span_cost(cons_points, poses_wc)
+    inf = torch.full_like(cost0, torch.inf)
+    if agg_points is None:
+        agg_points, agg_poses = mp.points, poses_wc
+        cost1 = cost1b = inf
+    else:
         cost1 = torch.where(aggressive, span_cost(agg_points, agg_poses), inf)
         cost1b = torch.where(aggressive, span_cost(mp.points, agg_poses), inf)
-    else:
-        agg_points, agg_poses = mp.points, poses_wc
-        ba_cost0 = ba_cost = zero_b
-        pg_cost0 = pg_cost = zero
-        cost1 = cost1b = inf
-
-    # --- acceptance ---
-    # aggressive joint gate: the BA objective must not regress AND the
-    # anti-gauge-slide check (candidate poses against the UNMOVED map) must
-    # hold: a block re-solve can transport poses and points coherently along
-    # weakly observable modes, the cost staying low while the trajectory
-    # walks away from truth.
     joint = (
         torch.isfinite(cost1) & (cost1 <= cost0)
         & torch.isfinite(cost1b) & (cost1b <= 2.0 * cost0)
     )
-    # conservative points-only gate WITH margin: a polish that wins less
-    # than (1 - cons_margin) of the span cost is within the refinement
-    # noise floor and is not applied
     acc_cons = torch.isfinite(cost_pp) & (cost_pp <= cons_margin * cost0)
     acc_pts = torch.where(aggressive, joint, acc_cons)
     acc_pose = aggressive & joint
 
-    cand_points = torch.where(aggressive[..., None, None], agg_points, cons_mp.points)
-    out_points = torch.where(acc_pts[..., None, None], cand_points, mp.points)
-    out_poses = torch.where(acc_pose[..., None, None, None], agg_poses, poses_wc)
+    cand_points = torch.where(aggressive[..., None, None], agg_points, cons_points)
     return RefineResult(
-        map=mp._replace(points=out_points),
-        poses=out_poses,
+        map=mp._replace(points=torch.where(acc_pts[..., None, None], cand_points, mp.points)),
+        poses=torch.where(acc_pose[..., None, None, None], agg_poses, poses_wc),
         frame_lo=frame_lo,
         ba_cost0=ba_cost0,
         ba_cost=ba_cost,
@@ -237,15 +326,7 @@ def refine_global(
         accepted=acc_pts | acc_pose,
         span_cost0=cost0,
         span_cost=torch.where(aggressive, cost1, cost_pp),
-        cost_per_obs=alt.cost0 / n_obs_f,
-    )
-
-
-def refine_global_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "refine_global_sharded: one keyframe block per device (svo_tpu's "
-        "shard_map variant) is not ported yet (ROADMAP item A13); "
-        "refine_global solves all blocks on one device"
+        cost_per_obs=cost_per_obs,
     )
 
 

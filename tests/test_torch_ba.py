@@ -197,10 +197,22 @@ def test_stacked_problems_equal_single_solves():
                 assert torch.equal(x[i // 2, i % 2], y)
 
 
-def test_distributed_mode_names_its_item():
+def test_distributed_mode_with_one_shard_is_the_single_solve():
+    """solve_ba(group=...) on a gloo world of one holding the whole problem
+    as one shard adds nothing across shards: it is the single solve bit
+    for bit (tests/test_torch_dist_ba.py holds 8 shards). It takes exactly
+    one leading axis of shards."""
+    from torch_dist import world_of_one
+
     _, pt = _pair(seed=0)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tsolver.solve_ba(pt, K_T, BFX, axis_name="ba")
+    alone = tsolver.solve_ba(pt, K_T, BFX, iterations=6)
+    with world_of_one() as group:
+        sharded = tsolver.solve_ba(tsolver.BAProblem(*(x[None] for x in pt)), K_T, BFX,
+                                   iterations=6, group=group)
+        with pytest.raises(ValueError, match="one leading axis"):
+            tsolver.solve_ba(pt, K_T, BFX, group=group)
+    for x, y in zip(sharded, alone):
+        assert torch.equal(x[0], y)
 
 
 def test_segment_sum():

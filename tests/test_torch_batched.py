@@ -268,19 +268,32 @@ def test_shape_and_cadence_errors(data):
              torch.zeros((CHUNK,) + SHAPE, dtype=torch.uint8), bvo.generator)
 
 
-def test_back_end_is_not_ported(data):
+def test_back_end_and_the_sharded_refiner(data):
     """The back-end is ported (test_torch_global_opt.py holds refine()
     against svo_tpu's): make_refiner builds with svo_tpu's defaults, and
-    refine() before start() raises like the other entry points. What is
-    left raises naming its item: the mesh-sharded refiner."""
+    refine() before start() raises like the other entry points. The
+    process-group refiner runs: on a gloo world of one it returns what
+    refine_global returns on a drifted span, bit for bit
+    (test_torch_global_opt.py runs it over two ranks)."""
+    from svo_tpu_torch.ba import synthetic
     from svo_tpu_torch.parallel import global_opt
+    from torch_dist import world_of_one
 
     bvo = TBatched(TConfig(**KW), _tcam(data), S, device="cpu")
     assert callable(bvo.make_refiner())
     with pytest.raises(RuntimeError, match="start"):
         bvo.refine()
-    with pytest.raises(NotImplementedError, match="A13"):
-        global_opt.refine_global_sharded()
+    mp, poses, _ = synthetic.drifted_state(0)
+    args = (mp, poses, torch.tensor(21, dtype=torch.int32), torch.tensor(synthetic.K_MAT),
+            synthetic.FX * synthetic.BASELINE)
+    kw = dict(n_blocks=4, ba_iterations=6, pg_iterations=6)
+    want = global_opt.refine_global(*args, **kw)
+    with world_of_one():
+        got = global_opt.refine_global_sharded(*args, **kw)
+    assert float(want.cost_per_obs) > 10.0  # the aggressive regime: block BA and consensus
+    assert torch.equal(got.map.points, want.map.points)
+    for f in global_opt.RefineResult._fields[1:]:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("engine_cls", [TStereoVO, TBatched], ids=["StereoVO", "BatchedStereoVO"])

@@ -183,3 +183,65 @@ def test_extract_blocks(cases):
             c["mp"], c["poses"], torch.tensor(6 + 5 * b, dtype=torch.int32), n_cams=7, n_points=512, n_obs=2048)
         for g, w in zip(tuple(probs) + tuple(maps), tuple(one) + tuple(one_map)):
             assert torch.equal(g[b], w)
+
+
+SHARD_KW = dict(cams_per_block=7, n_points=512, n_obs=2048, ba_iterations=8, pg_iterations=8)
+
+# one rank of refine_global_sharded, in a fresh interpreter that imports only the port
+SHARDED_RANK = """
+import numpy as np, torch
+torch.set_num_threads(2)
+from svo_tpu_torch.parallel import global_opt, multihost
+from svo_tpu_torch.pipeline.state import MapState
+
+multihost.init(f"localhost:{PORT}", WORLD, RANK, backend="gloo", timeout_s=120)
+d = np.load(IN)
+mp = MapState(*(torch.from_numpy(d[f]) for f in MapState._fields))
+res = global_opt.refine_global_sharded(
+    mp, torch.from_numpy(d["poses"]), torch.tensor(N - 1, dtype=torch.int32),
+    torch.tensor(K), BFX, n_blocks=4, **KW)
+np.savez(OUT.format(RANK), poses=res.poses.numpy(), points=res.map.points.numpy(),
+         accepted=res.accepted.numpy(), ba_cost=res.ba_cost.numpy())
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_refine_global_sharded_over_two_ranks(tmp_path):
+    """refine_global_sharded with 4 blocks of 7 cameras over 2 gloo ranks
+    (2 blocks each) on svo_tpu's drifted fixture of
+    test_refine_sharded_matches_vmapped: both ranks return the same bits,
+    the world of one's, and these equal the port's refine_global (within
+    test_global_opt.py's 1e-4 they are bit-equal). Against svo_tpu's
+    refine_global_sharded on a 4-device mesh, poses are held to this file's
+    1e-3 between the two packages (the port's refine_global and svo_tpu's
+    differ by 1.4e-4 on this fixture at 8 iterations, as svo_tpu's two
+    refiners differ by 6e-6), the ATE within 1e-3 and the verdict equal."""
+    from jax.sharding import Mesh
+
+    from torch_dist import run_code, world_of_one
+
+    mp, poses, gt, _ = make_drifted_state(np.random.default_rng(42), n_frames=N)
+    arrays = {f: np.asarray(getattr(mp, f)) for f in TMapState._fields}
+    np.savez(tmp_path / "in.npz", poses=np.asarray(poses), **arrays)
+    run_code(SHARDED_RANK, 2, timeout=240, IN=str(tmp_path / "in.npz"),
+             OUT=str(tmp_path / "sh_{}.npz"), N=N, K=K_MAT.tolist(), BFX=BFX, KW=SHARD_KW)
+    ranks = [np.load(tmp_path / f"sh_{r}.npz") for r in range(2)]
+    for k in ("poses", "points", "accepted", "ba_cost"):
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k])
+
+    tm, tp, hi = _tmap(mp), torch.tensor(np.asarray(poses)), torch.tensor(N - 1, dtype=torch.int32)
+    with world_of_one():
+        one = tglobal.refine_global_sharded(tm, tp, hi, K_T, BFX, n_blocks=4, **SHARD_KW)
+    np.testing.assert_array_equal(ranks[0]["poses"], one.poses.numpy())
+    np.testing.assert_array_equal(ranks[0]["points"], one.map.points.numpy())
+
+    ref = tglobal.refine_global(tm, tp, hi, K_T, BFX, n_blocks=4, **SHARD_KW)
+    np.testing.assert_array_equal(ranks[0]["poses"], ref.poses.numpy())
+    np.testing.assert_array_equal(ranks[0]["points"], ref.map.points.numpy())
+    mesh = Mesh(np.array(jax.devices()[:4]), axis_names=("ba_block",))
+    jsh = jglobal.refine_global_sharded(mp, poses, jnp.int32(N - 1), jnp.asarray(K_MAT),
+                                        jnp.float32(BFX), mesh=mesh, **SHARD_KW)
+    got, want = ranks[0]["poses"][:N], np.asarray(jsh.poses[:N])
+    np.testing.assert_allclose(got, want, atol=1e-3)
+    assert abs(_ate(got, gt) - _ate(want, gt)) < 1e-3
+    assert bool(ranks[0]["accepted"]) == bool(ref.accepted) == bool(jsh.accepted)

@@ -3,7 +3,9 @@
 A fresh interpreter with those three blocked in sys.modules imports every
 module of svo_tpu_torch (the kernel wrappers, the batched engine, the
 back-end, the checkpoint module, the probe, the tracker timing script,
-the readers and the three entry points among them) and chip_smoke.py,
+the readers, the three entry points, the reference CPU pipeline, the soak
+and worlds scripts and the distributed modules among them; cv2 only when
+the reference pipeline is built) and chip_smoke.py,
 runs detect_fast and detect_orb on the CPU, constructs
 BatchedStereoVO there and builds its refiner; the EuRoC reader must ask
 for PyYAML only when it reads a sensor file, and each entry point must
@@ -37,7 +39,11 @@ assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
         "svo_tpu_torch.ops.harris", "svo_tpu_torch.io.kitti", "svo_tpu_torch.io.euroc",
         "svo_tpu_torch.utils.metrics", "svo_tpu_torch.viz.dump", "svo_tpu_torch.runtime.loader",
         "svo_tpu_torch.run_synthetic", "svo_tpu_torch.run_kitti",
-        "svo_tpu_torch.run_euroc"} <= set(mods)
+        "svo_tpu_torch.run_euroc", "svo_tpu_torch.eval.reference_cpu",
+        "svo_tpu_torch.soak", "svo_tpu_torch.eval_worlds", "svo_tpu_torch.parallel.ba",
+        "svo_tpu_torch.parallel.multihost", "svo_tpu_torch.parallel.multi_seq",
+        "svo_tpu_torch.parallel.collective", "svo_tpu_torch.multihost_ba_worker"} <= set(mods)
+assert "cv2" not in sys.modules  # the reference pipeline imports it when built
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.io.synthetic import SyntheticSequence
@@ -63,8 +69,9 @@ assert (bvo.chunk, bvo.kf_cadence) == (12, 6)
 assert callable(bvo.make_refiner())
 import chip_smoke
 assert not torch.cuda.is_available()
-from svo_tpu_torch import run_euroc, run_kitti, run_synthetic
-for cli, argv in ((run_synthetic, []), (run_kitti, []), (run_euroc, ["--root", "x"])):
+from svo_tpu_torch import eval_worlds, multihost_ba_worker, run_euroc, run_kitti, run_synthetic, soak
+for cli, argv in ((run_synthetic, []), (run_kitti, []), (run_euroc, ["--root", "x"]), (soak, []),
+                  (eval_worlds, []), (multihost_ba_worker, ["--rank", "0", "--port", "1", "--out", "x"])):
     assert cli.parse_args(argv).device == "cuda"  # the card unless asked
 assert chip_smoke.main() == 1
 assert probe.main() == 1
@@ -82,4 +89,4 @@ def test_port_imports_and_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines == [lines[-1]] and lines[-1].startswith("IMPORTED")
-    assert int(lines[-1].split()[1]) >= 26
+    assert int(lines[-1].split()[1]) >= 34
