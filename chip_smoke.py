@@ -49,7 +49,13 @@ frames of each), both counted against the launch rule; and on
 torch.distributed, a world of one (NCCL) holding 8 BA shards against the
 single solve, refine_global_sharded against refine_global, MultiStereoVO
 against StereoVO, then two gloo processes sharing the card, bit-equal to
-the world of one. Every phase prints its lines;
+the world of one. Then the evaluation harnesses, each in this process:
+svo_tpu_torch.eval_recovery (drift injected into a live 97-frame run; the
+back-end's aggressive regime must fire, be accepted and recover it),
+svo_tpu_torch.eval_ba (refine_global swept over the 97 frames above),
+svo_tpu_torch.eval_fleet (a KITTI root built from kitti_mini, and 2
+synthetic sequences) and svo_tpu_torch.eval_euroc (euroc_mini, held to
+2 x svo_tpu's ATE), each counted against the launch rule. Every phase prints its lines;
 any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing a result. The last line is
 {"ok": true, "device": {...}}.
@@ -820,6 +826,15 @@ def _kernel_counts(counts: dict) -> dict:
     return {k: sum(counts[w] for w in ws) for k, ws in WRAPPERS.items()}
 
 
+def _counts(kernels) -> dict:
+    return {k.__name__: k.launches for k in kernels}
+
+
+def _zero(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
 def _check_launches(tag, engine, counts, n_kf, steps: int = N_FRAMES - 1):
     expected = _expected_launches(engine, n_kf, steps)
     for name, count in _kernel_counts(counts).items():
@@ -838,13 +853,12 @@ def phase_main_path(kernels, frames, seq) -> tuple[dict, dict]:
 
     launches, ates, warm = {}, {}, {}
     for engine in ENGINES:
-        for k in kernels:
-            k.launches = 0
+        _zero(kernels)
         torch.cuda.reset_peak_memory_stats()
         res = _run(frames, seq, "cuda", engine)
         peak = torch.cuda.max_memory_allocated()
         warm[engine] = res.fps
-        counts = {k.__name__: k.launches for k in kernels}
+        counts = _counts(kernels)
         launches[engine] = counts
         poses = res.poses
         check(poses.shape == (N_FRAMES, 4, 4), f"poses shape {poses.shape}")
@@ -940,13 +954,12 @@ def phase_batched_main_path(kernels, seq, staged) -> dict:
 
     launches, warm = {}, {}
     for engine in ENGINES:
-        for k in kernels:
-            k.launches = 0
+        _zero(kernels)
         torch.cuda.reset_peak_memory_stats()
         bvo, wall = drive(engine)
         peak = torch.cuda.max_memory_allocated()
         warm[engine] = S * n_stepped / wall
-        counts = {k.__name__: k.launches for k in kernels}
+        counts = _counts(kernels)
         launches[engine] = counts
         trajs = bvo.trajectories(n_stepped + 1)
         check(trajs.shape == (S, N_FRAMES, 4, 4), f"batched poses shape {trajs.shape}")
@@ -1209,10 +1222,9 @@ def phase_refined_main_path(kernels, staged) -> SimpleNamespace:
     fps = {False: [], True: []}
     ates = {}
     for turn, refine in enumerate((False, True)):
-        for k in kernels:
-            k.launches = 0
+        _zero(kernels)
         bvo, wall, verdicts = drive(refine)
-        counts = {k.__name__: k.launches for k in kernels}
+        counts = _counts(kernels)
         trajs = bvo.trajectories(n_stepped + 1)
         check(all(bool(torch.isfinite(x).all()) for x in _leaves(bvo.state)
                   if x.is_floating_point()), f"refined arm turn {turn}: non-finite state")
@@ -1523,13 +1535,12 @@ def phase_shipping_main_path(kernels, frames, seq) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for tag, engine, cadence in (("a", "fused", CADENCE), ("b", "patches", 0)):
             path = os.path.join(tmp, f"{tag}.json")
-            for k in kernels:
-                k.launches = 0
+            _zero(kernels)
             rc = run_synthetic.main([
                 "--frames", str(N_FRAMES), "--chunk", str(CHUNK), "--cadence", str(cadence),
                 "--lk-engine", engine, "--device", "cuda", "--seed", "0",
                 "--out-json", path])
-            counts = {k.__name__: k.launches for k in kernels}
+            counts = _counts(kernels)
             with open(path) as f:
                 r = json.load(f)
             r.update(tag=tag, counts=counts)
@@ -1586,12 +1597,11 @@ def phase_shipping_batched(kernels, staged) -> dict:
         torch.cuda.synchronize()
         return bvo, time.perf_counter() - t0
 
-    for k in kernels:
-        k.launches = 0
+    _zero(kernels)
     torch.cuda.reset_peak_memory_stats()
     bvo, wall = drive()
     peak = torch.cuda.max_memory_allocated()
-    counts = {k.__name__: k.launches for k in kernels}
+    counts = _counts(kernels)
     trajs = bvo.trajectories(n_stepped + 1)
     check(bool(np.isfinite(trajs).all()), "batched ORB: NaN/inf in the poses")
     ates = _stream_ates(trajs, staged)
@@ -1685,14 +1695,13 @@ def phase_soak(kernels) -> dict:
     from svo_tpu_torch import soak
     from svo_tpu_torch.ba.window import extract_window
 
-    for k in kernels:
-        k.launches = 0
+    _zero(kernels)
     argv = ["--frames", str(SOAK_FRAMES), "--refine-every", str(REFINE_EVERY), "--ckpt-at", "10",
             "--resume-chunks", "4", "--lk-engine", "fused", "--device", "cuda"]
     t0 = time.perf_counter()
     r, vo = soak.soak(soak.parse_args(argv))
     wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in kernels}
+    counts = _counts(kernels)
     cap, res = r["capacity"], r["resume"]
     st = vo.state
     fid = int(st.frame_id)
@@ -1733,14 +1742,13 @@ def phase_worlds(kernels) -> dict:
     holds that launch against its plain version at these shapes)."""
     from svo_tpu_torch import eval_worlds
 
-    for k in kernels:
-        k.launches = 0
+    _zero(kernels)
     argv = ["--frames", "241", "--limit", str(WORLDS_FRAMES), "--refine-every", str(REFINE_EVERY),
             "--skip-ref", "--lk-engine", "fused", "--device", "cuda"]
     t0 = time.perf_counter()
     r, _ = eval_worlds.evaluate(eval_worlds.parse_args(argv))
     wall = time.perf_counter() - t0
-    counts = {k.__name__: k.launches for k in kernels}
+    counts = _counts(kernels)
     check(r["streams"] == WORLD_STREAMS,
           f"worlds: {r['streams']} streams, phase_lk_track checks {WORLD_STREAMS}")
     for row in r["worlds"]:
@@ -1763,6 +1771,141 @@ def phase_worlds(kernels) -> dict:
           f"worlds: corridor-base ATE {base['ate_fwd_m']} / {base['ate_rev_m']} m")
     _check_launches("worlds", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
     return dict(counts=counts, result=r)
+
+
+RECOVERY_FRAMES, RECOVERY_INJECT_AT = 97, 49   # eval_recovery's 241 / 121, depth cut
+EUROC_MINI_ATE_M = 0.0455  # svo_tpu's EUROC_r05.json on tests/fixtures/euroc_mini
+
+
+def phase_recovery(kernels) -> dict:
+    """svo_tpu_torch.eval_recovery at 376x1241, fused, cut to 97 frames:
+    corridor-base run healthily to frame 48, 4 degrees and 0.8 m of drift
+    injected over frames 27-48 (the poses and the points born there), one
+    refine_global sweep, then arm A without a back-end and arm B from the
+    swept state with refine_global every 2 chunks, to frame 96. Held: the
+    aggressive regime fired and its sweep was accepted, the span's error
+    fell, arm B recovered (under half arm A's error), both arms started
+    from the same generator state, and lk_level was launched by the launch
+    rule over the healthy run and both arms."""
+    from svo_tpu_torch import eval_recovery
+
+    _zero(kernels)
+    argv = ["--frames", str(RECOVERY_FRAMES), "--inject-at", str(RECOVERY_INJECT_AT),
+            "--span", "22", "--lk-engine", "fused", "--device", "cuda"]
+    t0 = time.perf_counter()
+    r, _ = eval_recovery.recovery(eval_recovery.parse_args(argv))
+    wall = time.perf_counter() - t0
+    counts = _counts(kernels)
+    print(f"recovery: {r['frames']} frames 376x1241 fused, drift at frame {r['inject_at']} over "
+          f"{r['span']} frames: newest pose {r['newest_pose_err_m']:.4f} m off | sweep cost "
+          f"{r['refine_cost_per_obs_px']:.4f} px/obs, aggressive {r['aggressive_fired']}, accepted "
+          f"{r['accepted']}, span error {r['span_abs_err_before_m']:.4f} -> "
+          f"{r['span_abs_err_after_m']:.4f} m | after the injection: no back-end "
+          f"{r['post_abs_err_no_backend_m']:.4f} m, recovered {r['post_abs_err_recovered_m']:.4f} m, "
+          f"recovered {r['recovered']} | generator at each arm {r['arm_generator_states']} | "
+          f"{wall:.1f} s | launches {counts}")
+    check(r["aggressive_fired"] and r["accepted"],
+          f"recovery: aggressive {r['aggressive_fired']}, accepted {r['accepted']}")
+    check(r["span_abs_err_after_m"] < r["span_abs_err_before_m"],
+          f"recovery: the sweep did not reduce the span's error ({r['span_abs_err_before_m']} -> "
+          f"{r['span_abs_err_after_m']} m)")
+    check(r["recovered"], f"recovery: arm B {r['post_abs_err_recovered_m']} m is not under half of "
+          f"arm A's {r['post_abs_err_no_backend_m']} m")
+    gens = r["arm_generator_states"]
+    check(len(gens) == 2 and gens[0] == gens[1], f"recovery: the arms' generators differ {gens}")
+    _check_launches("recovery", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    return dict(counts=counts, result=r)
+
+
+def phase_eval_ba(kernels, frames, seq) -> dict:
+    """svo_tpu_torch.eval_ba on the 97 frames rendered above: run_chunked
+    (fused), then refine_global swept over the finished trajectory in
+    22-frame spans (frames 21, 42, 63, 84 and 96) with eval_ba's sizes.
+    Held: every swept pose finite, one sweep per span end, lk_level
+    launched by the launch rule; ATE before and after printed."""
+    from svo_tpu_torch import eval_ba
+
+    _zero(kernels)
+    args = eval_ba.parse_args(["--frames", str(N_FRAMES), "--lk-engine", "fused",
+                               "--device", "cuda"])
+    t0 = time.perf_counter()
+    r, _ = eval_ba.evaluate(args, frames=frames, seq=seq)
+    wall = time.perf_counter() - t0
+    counts = _counts(kernels)
+    his = eval_ba.schedule(N_FRAMES, args.blocks, args.cams_per_block)
+    print(f"eval_ba: {eval_ba.summary_line(r)} | spans ending at {r['his']}, accepted "
+          f"{r['accepted']}, cost/obs {[round(c, 3) for c in r['cost_per_obs']]} | {wall:.1f} s | "
+          f"launches {counts}")
+    check(r["finite"], "eval_ba: a swept pose is not finite")
+    check(r["sweeps"] == len(his) == 5 and r["his"] == his,
+          f"eval_ba: {r['sweeps']} sweeps at {r['his']}, expected {his}")
+    _check_launches("eval_ba", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    return dict(counts=counts, result=r)
+
+
+def phase_eval_tables(kernels) -> dict:
+    """The table harnesses, each in this process: svo_tpu_torch.eval_fleet
+    on a KITTI root built from tests/fixtures/kitti_mini (sequences/00,
+    poses/00.txt; 96x320, chunk 6 and cadence 6, so 7 frames, patches),
+    eval_fleet on 2 synthetic sequences of 25 frames at 376x1241 (fused),
+    and svo_tpu_torch.eval_euroc on tests/fixtures/euroc_mini (40 frames,
+    192x320, the data-dependent keyframe rule, patches). Held: every ATE
+    finite, the EuRoC ATE at most 2 x svo_tpu's 0.0455 m (the PnP noise
+    differs and picks a basin at this size; a broken reader gives metres),
+    and each run's kernel launched by the launch rule, so both kernels run."""
+    import shutil
+    import tempfile
+
+    from svo_tpu_torch import eval_euroc, eval_fleet
+
+    fix = os.path.join(REPO, "tests", "fixtures", "kitti_mini")
+    per_run, rows = {}, []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        seq_dir = os.path.join(root, "sequences", "00")
+        for d in ("image_2", "image_3"):
+            shutil.copytree(os.path.join(fix, d), os.path.join(seq_dir, d))
+        shutil.copy(os.path.join(fix, "calib.txt"), seq_dir)
+        os.makedirs(os.path.join(root, "poses"))
+        shutil.copy(os.path.join(fix, "poses.txt"), os.path.join(root, "poses", "00.txt"))
+        for tag, engine, argv in (
+            ("kitti_mini", "patches", ["--kitti", root, "--seqs", "00", "--chunk", "6",
+                                       "--cadence", "6"]),
+            ("synthetic", "fused", ["--seqs", "00,01", "--frames", "25"]),
+        ):
+            _zero(kernels)
+            r, _ = eval_fleet.evaluate(eval_fleet.parse_args(
+                argv + ["--lk-engine", engine, "--device", "cuda"]))
+            per_run[tag] = _counts(kernels)
+            check(len(r["rows"]) == (1 if tag == "kitti_mini" else 2), f"fleet {tag}: {r['rows']}")
+            for row in r["rows"]:
+                rows.append((tag, row))
+                check(row["finite"] and np.isfinite(row["ate_m"]),
+                      f"fleet {tag} {row['seq']}: ATE {row['ate_m']}")
+            _check_launches(f"fleet {tag}", engine, per_run[tag],
+                            sum(row["keyframes"] for row in r["rows"]),
+                            sum(row["frames"] - 1 for row in r["rows"]))
+    _zero(kernels)
+    e, _ = eval_euroc.evaluate(eval_euroc.parse_args(["--lk-engine", "patches", "--device", "cuda"]))
+    per_run["euroc_mini"] = _counts(kernels)
+    wall = time.perf_counter() - t0
+    for tag, row in rows:
+        print(f"  fleet | {tag:<10} {row['seq']:>8} | {row['frames']} frames | ATE "
+              f"{row['ate_m']:.4f} m ({row['ate_pct']:.3f}%) | RPE {row['rpe_t_m']:.4f} m / "
+              f"{row['rpe_r_deg']:.4f} deg | {row['fps_incl_compile']:.3f} frames/s")
+    bound = 2 * EUROC_MINI_ATE_M
+    print(f"eval_euroc: {e['root']} {e['frames']} frames {e['image']}, patches: ATE {e['ate_m']:.4f} m "
+          f"= {e['ate_pct_of_traveled']:.3f}% of {e['traveled_m']:.2f} m (bound {bound}; svo_tpu "
+          f"{EUROC_MINI_ATE_M}) | RPE {e['rpe_trans_m']:.4f} m / {e['rpe_rot_deg']:.4f} deg | "
+          f"inlier ratio {e['mean_inlier_ratio']:.4f}, {e['keyframes']} keyframes | tables "
+          f"{wall:.1f} s | launches {per_run}")
+    check(e["finite"] and np.isfinite(e["ate_m"]) and e["ate_m"] <= bound,
+          f"eval_euroc: ATE {e['ate_m']} m > {bound} m")
+    _check_launches("euroc_mini", "patches", per_run["euroc_mini"], e["keyframes"], e["frames"] - 1)
+    counts = {k: sum(c[k] for c in per_run.values()) for k in per_run["euroc_mini"]}
+    kc = _kernel_counts(counts)
+    check(kc["klt_patches"] > 0 and kc["lk_level"] > 0, f"eval tables: launches {kc}")
+    return dict(counts=counts, fleet=rows, euroc=e)
 
 
 def _free_port() -> int:
@@ -1964,6 +2107,12 @@ def main() -> int:
     done("soak")
     worlds = phase_worlds(kernels)
     done("worlds suite")
+    recovery = phase_recovery(kernels)
+    done("aggressive recovery on live state")
+    eval_ba_run = phase_eval_ba(kernels, frames, seq)
+    done("refinement sweep over the finished trajectory")
+    tables = phase_eval_tables(kernels)
+    done("fleet table and EuRoC artifact")
     phase_distributed(frames, seq)
     done("distributed paths")
 
@@ -1978,14 +2127,19 @@ def main() -> int:
         n_ship += _kernel_counts(shipping_batched["counts"])[name]
         n_soak = _kernel_counts(soak["counts"])[name]
         n_worlds = _kernel_counts(worlds["counts"])[name]
+        n_recovery = _kernel_counts(recovery["counts"])[name]
+        n_eval_ba = _kernel_counts(eval_ba_run["counts"])[name]
+        n_tables = _kernel_counts(tables["counts"])[name]
         check(n_single > 0 and n_batched > 0 and n_ship > 0,
               f"{name} was not launched on a main path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n_single + n_batched + n_ship + n_soak + n_worlds,
+            "launches": n_single + n_batched + n_ship + n_soak + n_worlds + n_recovery
+            + n_eval_ba + n_tables,
             "launches_single_stream": n_single, "launches_batched": n_batched,
             "launches_shipping_orb": n_ship, "launches_soak": n_soak,
-            "launches_worlds": n_worlds,
+            "launches_worlds": n_worlds, "launches_recovery": n_recovery,
+            "launches_eval_ba": n_eval_ba, "launches_eval_tables": n_tables,
             "max_abs_err": max(rows["max_abs_err"], batched[f"{name}_max_abs_err"]),
             "ms": r0["ms"], "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
             "bound_by": r0.get("bound_by", "bytes"), "library_ms": None,

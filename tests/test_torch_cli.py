@@ -123,11 +123,16 @@ def test_run_synthetic_cli(tmp_path, extra):
 
 def test_entry_points_need_a_card_unless_asked():
     """--device defaults to cuda; without a card the run raises rather than
-    falling back to the CPU."""
+    falling back to the CPU (the evaluation harnesses before they render or
+    read a frame)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    with pytest.raises(RuntimeError, match="cuda"):
-        run_synthetic.main(["--small", "--frames", "2"])
+    from svo_tpu_torch import eval_ba, eval_euroc, eval_fleet, eval_recovery
+
+    for cli, argv in ((run_synthetic, ["--small", "--frames", "2"]), (eval_recovery, []),
+                      (eval_ba, []), (eval_fleet, ["--small"]), (eval_euroc, [])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(argv)
 
 
 def test_dynamic_chunked_step_matches_svo_tpu(monkeypatch):

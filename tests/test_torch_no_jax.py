@@ -3,8 +3,9 @@
 A fresh interpreter with those three blocked in sys.modules imports every
 module of svo_tpu_torch (the kernel wrappers, the batched engine, the
 back-end, the checkpoint module, the probe, the tracker timing script,
-the readers, the three entry points, the reference CPU pipeline, the soak
-and worlds scripts and the distributed modules among them; cv2 only when
+the readers, the three entry points, the reference CPU pipeline, the soak,
+worlds, recovery, refinement-sweep, fleet and EuRoC harnesses and the
+distributed modules among them; cv2 only when
 the reference pipeline is built) and chip_smoke.py,
 runs detect_fast and detect_orb on the CPU, constructs
 BatchedStereoVO there and builds its refiner; the EuRoC reader must ask
@@ -42,7 +43,9 @@ assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
         "svo_tpu_torch.run_euroc", "svo_tpu_torch.eval.reference_cpu",
         "svo_tpu_torch.soak", "svo_tpu_torch.eval_worlds", "svo_tpu_torch.parallel.ba",
         "svo_tpu_torch.parallel.multihost", "svo_tpu_torch.parallel.multi_seq",
-        "svo_tpu_torch.parallel.collective", "svo_tpu_torch.multihost_ba_worker"} <= set(mods)
+        "svo_tpu_torch.parallel.collective", "svo_tpu_torch.multihost_ba_worker",
+        "svo_tpu_torch.eval_recovery", "svo_tpu_torch.eval_ba", "svo_tpu_torch.eval_fleet",
+        "svo_tpu_torch.eval_euroc"} <= set(mods)
 assert "cv2" not in sys.modules  # the reference pipeline imports it when built
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config
@@ -69,9 +72,11 @@ assert (bvo.chunk, bvo.kf_cadence) == (12, 6)
 assert callable(bvo.make_refiner())
 import chip_smoke
 assert not torch.cuda.is_available()
-from svo_tpu_torch import eval_worlds, multihost_ba_worker, run_euroc, run_kitti, run_synthetic, soak
+from svo_tpu_torch import (eval_ba, eval_euroc, eval_fleet, eval_recovery, eval_worlds,
+                           multihost_ba_worker, run_euroc, run_kitti, run_synthetic, soak)
 for cli, argv in ((run_synthetic, []), (run_kitti, []), (run_euroc, ["--root", "x"]), (soak, []),
-                  (eval_worlds, []), (multihost_ba_worker, ["--rank", "0", "--port", "1", "--out", "x"])):
+                  (eval_worlds, []), (multihost_ba_worker, ["--rank", "0", "--port", "1", "--out", "x"]),
+                  (eval_recovery, []), (eval_ba, []), (eval_fleet, []), (eval_euroc, [])):
     assert cli.parse_args(argv).device == "cuda"  # the card unless asked
 assert chip_smoke.main() == 1
 assert probe.main() == 1
