@@ -55,7 +55,12 @@ back-end's aggressive regime must fire, be accepted and recover it),
 svo_tpu_torch.eval_ba (refine_global swept over the 97 frames above),
 svo_tpu_torch.eval_fleet (a KITTI root built from kitti_mini, and 2
 synthetic sequences) and svo_tpu_torch.eval_euroc (euroc_mini, held to
-2 x svo_tpu's ATE), each counted against the launch rule. Every phase prints its lines;
+2 x svo_tpu's ATE), each counted against the launch rule. Then the
+developer tools on the frames already rendered (8 streams, the first 49
+frames): the patch self-test on a real frame (0.0), bench_batched and
+time_chunk with each engine (ATE, reps bit-equal, the launch rule),
+profile_chunk (lk_level 26 times in a traced 12-frame chunk), klt_bench
+against the CPU path, microbench and soak_ref. Every phase prints its lines;
 any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing a result. The last line is
 {"ok": true, "device": {...}}.
@@ -1908,6 +1913,110 @@ def phase_eval_tables(kernels) -> dict:
     return dict(counts=counts, fleet=rows, euroc=e)
 
 
+TOOLS_FRAMES = 49  # the timing tools' depth on main's 97 frames: 4 chunks of 12
+
+
+def phase_tools(kernels, frames, seq) -> dict:
+    """The port's developer tools on the card, each through its function, at
+    the main path's width and cut depth (the first 49 frames of each of 8
+    streams of main's 97-frame sequence, even forward, odd reversed):
+    patch_extraction_selftest on frame 1's left image (exactly 0.0, one
+    klt_patches launch); bench_batched with each engine and time_chunk with
+    both engines in turns, 2 reps (every stream's ATE within 0.273 m, each
+    engine's two reps bit-equal, each kernel launched by the launch rule);
+    profile_chunk (fused): lk_level 26 times in the traced 12-frame chunk
+    (2 a frame + 1 for each of its 2 keyframe steps), by the wrapper's count
+    and by the profiler's, a device total > 0 and a busy share in (0, 1];
+    klt_bench with each engine against the same pair on the CPU path (the
+    plain versions): survival equal, median error within 1e-3 px; microbench
+    (every stage finite); soak_ref over 25 frames (finite)."""
+    from svo_tpu_torch import (bench_batched, klt_bench, microbench, profile_chunk, soak_ref,
+                               time_chunk)
+    from svo_tpu_torch.ops.klt import patch_extraction_selftest
+
+    _zero(kernels)
+    t0 = time.perf_counter()
+    selftest = patch_extraction_selftest(torch.from_numpy(frames[1][1]).cuda())
+    n_self = _kernel_counts(_counts(kernels))["klt_patches"]
+    print(f"tools | patch_extraction_selftest on frame 1 ({SHAPE[0]}x{SHAPE[1]}, 64 features): max "
+          f"|diff| {selftest} | klt_patches launches {n_self}")
+    check(selftest == 0.0 and n_self == 1, f"self-test: {selftest}, {n_self} launches")
+    argv = ["--streams", str(STREAMS), "--frames", str(TOOLS_FRAMES), "--device", "cuda"]
+    steps = TOOLS_FRAMES - 1
+
+    def check_run(tag, engine, before, starts, n_steps):
+        """The kernel launches since `before` against the launch rule."""
+        n_kf = starts + n_steps // CADENCE  # each start is a bootstrap (stereo) step
+        got = {k: n - before[k] for k, n in _kernel_counts(_counts(kernels)).items()}
+        for name, count in got.items():
+            want = _expected_launches(engine, n_kf, n_steps) if name == PATH_KERNEL[engine] else 0
+            check(count == want, f"{tag} {engine}: {name} launched {count} times, expected {want}")
+
+    def check_ates(tag, ates):
+        check(all(np.isfinite(a) and a <= ATE_LIMIT_M for a in ates),
+              f"{tag}: per-stream ATE {ates} (limit {ATE_LIMIT_M})")
+
+    for engine in ENGINES:
+        before = _kernel_counts(_counts(kernels))
+        r, _ = bench_batched.bench(bench_batched.parse_args(argv + ["--lk-engine", engine]),
+                                   seq=seq, frames=frames)
+        print(f"tools | bench_batched: {bench_batched.summary_line(r)} | per-stream ATE "
+              f"{' '.join(f'{a:.4f}' for a in r['ate_per_stream_m'])} m")
+        check_ates(f"bench_batched {engine}", r["ate_per_stream_m"])
+        check_run("bench_batched", engine, before, 2, CHUNK + steps)  # warm chunk + timed run
+    before = _kernel_counts(_counts(kernels))
+    r, _ = time_chunk.time_chunks(time_chunk.parse_args(argv + ["--reps", "2", "--lk-engine", "both"]),
+                                  seq=seq, frames=frames)
+    for line in time_chunk.summary_lines(r):
+        print(f"tools | time_chunk S={STREAMS} x {r['frames']} frames, 2 reps: {line}")
+    for engine, v in r["engines"].items():
+        check_ates(f"time_chunk {engine}", v["ate_per_stream_m"])
+        check(v["reps_bit_equal"], f"time_chunk {engine}: the two reps differ")
+    got = {k: n - before[k] for k, n in _kernel_counts(_counts(kernels)).items()}
+    for engine in ENGINES:  # each engine: a warm chunk and 2 timed runs, 3 starts
+        want = _expected_launches(engine, 3 + (CHUNK + 2 * steps) // CADENCE, CHUNK + 2 * steps)
+        check(got[PATH_KERNEL[engine]] == want,
+              f"time_chunk: {PATH_KERNEL[engine]} launched {got[PATH_KERNEL[engine]]}, expected {want}")
+
+    p = profile_chunk.profile(profile_chunk.parse_args(argv + ["--lk-engine", "fused"]),
+                              seq=seq, frames=frames)
+    print("\n".join(f"tools | profile_chunk | {line}" for line in profile_chunk.report(p, 12)))
+    want = 2 * CHUNK + CHUNK // CADENCE
+    seen = sum(x["count"] for x in p["by_kind"] if x["name"] == "lk_level_kernel")
+    check(p["launches"] == {"klt_patches": 0, "lk_level": want} and seen == want,
+          f"profile_chunk: launches {p['launches']}, lk_level_kernel in the trace {seen}, "
+          f"expected {want}")
+    check(p["device_ms"] > 0 and 0 < p["busy_share"] <= 1,
+          f"profile_chunk: device {p['device_ms']} ms, busy share {p['busy_share']}")
+
+    klt = {}
+    for engine in ENGINES:
+        card, _ = klt_bench.bench(klt_bench.parse_args(["--device", "cuda", "--lk-engine", engine]))
+        plain, _ = klt_bench.bench(klt_bench.parse_args(["--device", "cpu", "--lk-engine", engine,
+                                                         "--reps", "1"]))
+        print("\n".join(f"tools | klt_bench | {line}" for line in klt_bench.report(card)))
+        for a, b in zip(card["calls"], plain["calls"]):
+            print(f"tools | klt_bench {engine} {a['name']}: card survived {a['survived_pct']:.2f}%, "
+                  f"median err {a['median_err_px']:.6f} px | CPU plain {b['survived_pct']:.2f}%, "
+                  f"{b['median_err_px']:.6f} px")
+            check(a["survived_pct"] == b["survived_pct"]
+                  and abs(a["median_err_px"] - b["median_err_px"]) <= 1e-3,
+                  f"klt_bench {engine} {a['name']}: card {a} against the CPU path {b}")
+        klt[engine] = card
+    mb = microbench.bench(microbench.parse_args(["--device", "cuda", "--reps", "3"]))
+    print("tools | microbench (fused) | " + " | ".join(f"{x['name']} {x['ms']:.3f} ms"
+                                                      for x in mb["stages"]))
+    check(all(np.isfinite(x["ms"]) and x["ms"] > 0 for x in mb["stages"]),
+          f"microbench: {mb['stages']}")
+    sr = soak_ref.soak_ref(soak_ref.parse_args(["--frames", "25"]))
+    print(f"tools | soak_ref 25 frames: ATE {sr['ate_m']} m ({sr['ate_pct_of_traveled']}% of "
+          f"{sr['traveled_m']} m), {sr['fps']} frames/s, finite {sr['finite']}")
+    check(sr["finite"] and np.isfinite(sr["ate_m"]), f"soak_ref: {sr}")
+    counts = _counts(kernels)
+    print(f"tools: {time.perf_counter() - t0:.1f} s | launches {counts}")
+    return dict(counts=counts, selftest=selftest, profile=p, klt=klt, microbench=mb)
+
+
 def _free_port() -> int:
     import socket
 
@@ -2113,6 +2222,8 @@ def main() -> int:
     done("refinement sweep over the finished trajectory")
     tables = phase_eval_tables(kernels)
     done("fleet table and EuRoC artifact")
+    tools = phase_tools(kernels, frames, seq)
+    done("developer tools")
     phase_distributed(frames, seq)
     done("distributed paths")
 
@@ -2130,16 +2241,18 @@ def main() -> int:
         n_recovery = _kernel_counts(recovery["counts"])[name]
         n_eval_ba = _kernel_counts(eval_ba_run["counts"])[name]
         n_tables = _kernel_counts(tables["counts"])[name]
+        n_tools = _kernel_counts(tools["counts"])[name]
         check(n_single > 0 and n_batched > 0 and n_ship > 0,
               f"{name} was not launched on a main path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_single + n_batched + n_ship + n_soak + n_worlds + n_recovery
-            + n_eval_ba + n_tables,
+            + n_eval_ba + n_tables + n_tools,
             "launches_single_stream": n_single, "launches_batched": n_batched,
             "launches_shipping_orb": n_ship, "launches_soak": n_soak,
             "launches_worlds": n_worlds, "launches_recovery": n_recovery,
             "launches_eval_ba": n_eval_ba, "launches_eval_tables": n_tables,
+            "launches_tools": n_tools,
             "max_abs_err": max(rows["max_abs_err"], batched[f"{name}_max_abs_err"]),
             "ms": r0["ms"], "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
             "bound_by": r0.get("bound_by", "bytes"), "library_ms": None,
@@ -2160,11 +2273,13 @@ def main() -> int:
         lk_row[f"track_bound{suffix}_ms"] = t["bound_ms"]
         lk_row[f"track_device{suffix}_us"] = t["device_us"]
 
+    kp_row = row("klt_patches", "svo_tpu_torch/csrc/klt_patches.cu", "svo_tpu/ops/klt_pallas.py:139",
+                 kern, "patches", "klt_patches_temporal")
+    kp_row["max_abs_err"] = max(kp_row["max_abs_err"], tools["selftest"])
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps({"kernels": [
-        row("klt_patches", "svo_tpu_torch/csrc/klt_patches.cu", "svo_tpu/ops/klt_pallas.py:139",
-            kern, "patches", "klt_patches_temporal"),
+        kp_row,
         lk_row,
         {
             "name": "probe", "route": "cuda", "source": "svo_tpu_torch/csrc/probe.cu",

@@ -1,7 +1,8 @@
-"""Measuring on the card: two timers, one profiler reading, the card's name.
+"""Measuring on the card: three timers, one profiler reading, the card's name.
 
-Shared by chip_smoke.py, track_times.py and multihost_ba_worker.py. Imports nothing of the package,
-so track_times.py can load this file beside a package from another tree.
+Shared by chip_smoke.py, track_times.py, multihost_ba_worker.py and the
+timing tools. Imports nothing of the package, so track_times.py can load
+this file beside a package from another tree.
 """
 
 from __future__ import annotations
@@ -32,6 +33,26 @@ def median_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return float(np.median(samples))
 
 
+def mean_ms(fn, device, reps: int = 10) -> float:
+    """Mean ms per call of `reps` back-to-back calls after one warm-up call:
+    between CUDA events on the card, on the host clock on the CPU."""
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def per_second(fn, work: int, reps: int = 10, device="cuda") -> float:
     """`work` units per call of fn, per second of wall over `reps` calls
     after one warm-up, the device synchronised at both ends."""
@@ -60,6 +81,13 @@ def device_events(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_name(device) -> str:
+    """What a result names its device by: the card's smi_line(), or the
+    torch device (`cpu`)."""
+    device = torch.device(device)
+    return smi_line() if device.type == "cuda" else str(device)
 
 
 def smi_line() -> str:

@@ -378,3 +378,63 @@ class KltTracker:
             margin_x=params.margin_x,
             engine=engine,
         )
+
+
+def selftest_geometry(img: torch.Tensor, n: int, window: int, seed: int):
+    """The self-test's inputs, as svo_tpu/ops/klt.py:434-490 makes them at
+    level 0: the edge-padded image and its Scharr gradients, the patch size
+    (py, px) of `window` with margin_x 6, and the corners (ty0, tx0, cy0,
+    cx0) of n random positions and guesses drawn from
+    np.random.default_rng(seed) in svo_tpu's order. Raises ValueError on an
+    image too small for one patch."""
+    import numpy as np
+
+    img_p = pad_replicate(img, _PAD_Y, _PAD_X)
+    gx, gy = scharr_gradients(img_p)
+    H, W = img_p.shape
+    py, px = _level_rows(window, H), _patch_cols(window, 6)
+    if py == 0 or W < px + 1:
+        raise ValueError(f"image too small for the self-test: {tuple(img.shape)}")
+    rng = np.random.default_rng(seed)
+    pos = np.stack(
+        [rng.uniform(0, W - 1, n).astype(np.float32), rng.uniform(0, H - 1, n).astype(np.float32)],
+        axis=-1,
+    )
+    guess = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
+    corners = _corners(
+        torch.from_numpy(pos).to(img.device), torch.from_numpy(guess).to(img.device),
+        H, W, py, px, window, 6,
+    )
+    return (img_p, gx, gy), corners, py, px
+
+
+def slice_windows(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, py: int, px: int):
+    """(N, py, px) windows of an (H, W) image at (y0, x0), one slice per
+    corner, the start clamped to [0, H-py] x [0, W-px] as
+    jax.lax.dynamic_slice clamps it: the self-test's reference, sharing no
+    code with extract_klt_patches or its plain version."""
+    H, W = img.shape
+
+    def window(y: int, x: int) -> torch.Tensor:
+        y, x = min(max(y, 0), H - py), min(max(x, 0), W - px)
+        return img[y:y + py, x:x + px]
+
+    return torch.stack([window(y, x) for y, x in zip(y0.tolist(), x0.tolist())])
+
+
+def patch_extraction_selftest(img, n: int = 64, window: int = 21, seed: int = 0) -> float:
+    """Hold the patch extraction against a separate slicing of the same
+    windows on a real (H, W) image and return the max |difference|
+    (expected exactly 0.0). The counterpart of svo_tpu's self-test
+    (bench.py records it as pallas_ab_max_diff): the tracker's level-0
+    geometry (selftest_geometry), n features, all live. On a CUDA tensor
+    extract_klt_patches launches csrc/klt_patches.cu; on a CPU tensor (or a
+    numpy array) it runs its plain version, and either is compared with
+    slice_windows, never with itself."""
+    img = torch.as_tensor(img, dtype=torch.float32)
+    (img_p, gx, gy), (ty0, tx0, cy0, cx0), py, px = selftest_geometry(img, n, window, seed)
+    valid = torch.ones(n, dtype=torch.bool, device=img.device)
+    got = extract_klt_patches(img_p, gx, gy, img_p, ty0, tx0, cy0, cx0, valid, py, px)
+    want = [slice_windows(a, ty0, tx0, py, px) for a in (img_p, gx, gy)]
+    want.append(slice_windows(img_p, cy0, cx0, py, px))
+    return max(float(torch.max(torch.abs(g - w))) for g, w in zip(got, want))
