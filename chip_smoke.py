@@ -60,7 +60,13 @@ developer tools on the frames already rendered (8 streams, the first 49
 frames): the patch self-test on a real frame (0.0), bench_batched and
 time_chunk with each engine (ATE, reps bit-equal, the launch rule),
 profile_chunk (lk_level 26 times in a traced 12-frame chunk), klt_bench
-against the CPU path, microbench and soak_ref. Every phase prints its lines;
+against the CPU path, microbench and soak_ref. Last the scaling harness,
+svo_tpu_torch.scaling_eff, each arm in fresh processes on the card (one
+card a rank where there are two, else both ranks sharing cuda:0): the
+2-stream frontend fleet in one process against one a process
+(trajectories bit-equal, each stream StereoVO(seed=s), klt_patches by the
+launch rule), and with two cards the distributed BA at its sweep's first
+point, 1 process against 2 (ranks bit-equal, arms within 1e-3). Every phase prints its lines;
 any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing a result. The last line is
 {"ok": true, "device": {...}}.
@@ -2152,6 +2158,83 @@ def phase_distributed(frames, seq) -> dict:
     return dict(lm_iterations_per_s=rates)
 
 
+SCALING_FRONTEND_FRAMES = 31  # svo_tpu's frontend scaling worker's depth
+
+
+def phase_scaling() -> dict:
+    """The scaling harness (svo_tpu_torch/scaling_eff.py) on the card, each
+    arm a set of fresh processes. The 2-stream frontend fleet at 31 frames
+    (184x320, patches), both streams in one process
+    (MultiStereoVO(n_streams=2)) against one a process: every rank's fleet
+    health finite, the arms' trajectories bit-equal, stream s equal to
+    StereoVO(seed=s) on the same frames in this process, and each process's
+    klt_patches launches by the launch rule (lk_level none). With 2 cards
+    (placement `cards`, one NCCL rank a card) also the distributed BA at the
+    sweep's first point (12 cameras x 4,096 points, ~41k observations, 20
+    LM iterations, 2 timed reps), one process against two: the two ranks'
+    costs bit-equal, the arms within 1e-3 relative (1 and 2 point blocks
+    sum in another order). On one card (placement `shared`, gloo ranks on
+    cuda:0) the BA half is left to phase_distributed, which holds two gloo
+    ranks sharing the card against this process's NCCL solve bit for bit;
+    scaling_eff --placement shared reads it in full. Returns the launches,
+    by kernel."""
+    from svo_tpu_torch import frontend_scaling_worker as fsw
+    from svo_tpu_torch import scaling_eff
+    from svo_tpu_torch.pipeline.odometry import StereoVO
+
+    n_cards = torch.cuda.device_count()
+    placement = "cards" if n_cards >= 2 else "shared"
+    p = scaling_eff.plan("cuda", placement)
+    print(f"scaling: {n_cards} card(s), placement {placement}: every arm {p['backend']}"
+          + ("" if placement == "cards" else
+             " on cuda:0 (exchange through host memory); the BA half is phase_distributed's"))
+    t0 = time.perf_counter()
+    point = None
+    if placement == "cards":
+        cams, pts, _ = scaling_eff.SWEEP[0]
+        point, _ = scaling_eff.measure(cams, pts, reps=2, device="cuda", placement=placement)
+        costs = point["final_cost_2proc"]
+        rel = abs(costs[0] - point["final_cost_1proc"]) / point["final_cost_1proc"]
+        print(f"scaling | BA {point['cams']} cams x {point['pts']} pts ({point['n_obs']} obs), "
+              f"{scaling_eff.ITERS} LM iterations x 2 reps: T1 {point['t1_s']:.4f} s, T2 "
+              f"{point['t2_s']:.4f} s, efficiency {point['efficiency']:.4f}, speedup "
+              f"{point['speedup']:.4f}, LM iterations/s {point['lm_iters_per_s_1proc']:.2f} / "
+              f"{point['lm_iters_per_s_2proc_effective']:.2f} (2 procs effective), comm overhead "
+              f"{point['comm_overhead_ms_per_iter']:.3f} ms an iteration | final cost "
+              f"{point['final_cost_1proc']!r} (1 proc), {costs} (2 procs), {rel:.2e} relative | "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(costs[0] == costs[1], f"scaling BA: the two ranks' costs differ: {costs}")
+        check(rel <= 1e-3, f"scaling BA: the arms differ by {rel:.2e} relative (bound 1e-3)")
+
+    fe, fworkers, trajs = scaling_eff.measure_frontend(SCALING_FRONTEND_FRAMES, device="cuda",
+                                                       placement=placement)
+    print(f"scaling | frontend {fe['streams']} streams x {SCALING_FRONTEND_FRAMES} frames "
+          f"({fe['steps']} timed steps): T1 {fe['t1_s']:.4f} s, T2 {fe['t2_s']:.4f} s, efficiency "
+          f"{fe['efficiency']:.4f}, frames/s aggregate {fe['fps_aggregate_1proc']:.2f} (1 proc) / "
+          f"{fe['fps_aggregate_2proc']:.2f} (2 procs) | trajectories bit-equal "
+          f"{fe['trajectories_bit_equal']} | health finite {fe['health_finite']} | launches "
+          f"{fe['launches']} | {time.perf_counter() - t0:.1f} s")
+    check(fe["health_finite"], "scaling frontend: a fleet health row is not finite")
+    check(fe["trajectories_bit_equal"], "scaling frontend: the arms' trajectories differ")
+    for n, ws in fworkers.items():
+        for w in ws:
+            want = _expected_launches("patches", sum(w["keyframes"]),
+                                      len(w["keyframes"]) * (w["frames"] - 1))
+            check(w["launches"] == {"klt_patches": want, "lk_level": 0},
+                  f"scaling frontend, {n}-process arm, rank {w['rank']}: launches "
+                  f"{w['launches']}, expected {want} klt_patches")
+    cfg, cam, lefts, rights = fsw.fleet(SCALING_FRONTEND_FRAMES)
+    for s in range(fsw.STREAMS):
+        lone = StereoVO(cfg, cam, seed=s, device="cuda").run(
+            [(i, lefts[i][s], rights[i][s]) for i in range(SCALING_FRONTEND_FRAMES)])
+        check(np.array_equal(trajs[s], lone.poses),
+              f"scaling frontend: stream {s} differs from StereoVO(seed={s})")
+    launches = {k: sum(a[k] for a in fe["launches"].values()) for k in ("klt_patches", "lk_level")}
+    print(f"scaling: {time.perf_counter() - t0:.1f} s | each stream equals StereoVO(seed=s) on "
+          f"the card | launches {launches}")
+    return dict(launches=launches, ba=point, frontend=fe)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -2226,6 +2309,8 @@ def main() -> int:
     done("developer tools")
     phase_distributed(frames, seq)
     done("distributed paths")
+    scaling = phase_scaling()
+    done("scaling harness")
 
     def row(name, source, replaces, rows, engine, key):
         """One kernel's line: its numbers at the temporal level-0 shape of
@@ -2242,17 +2327,18 @@ def main() -> int:
         n_eval_ba = _kernel_counts(eval_ba_run["counts"])[name]
         n_tables = _kernel_counts(tables["counts"])[name]
         n_tools = _kernel_counts(tools["counts"])[name]
+        n_scaling = scaling["launches"][name]
         check(n_single > 0 and n_batched > 0 and n_ship > 0,
               f"{name} was not launched on a main path")
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_single + n_batched + n_ship + n_soak + n_worlds + n_recovery
-            + n_eval_ba + n_tables + n_tools,
+            + n_eval_ba + n_tables + n_tools + n_scaling,
             "launches_single_stream": n_single, "launches_batched": n_batched,
             "launches_shipping_orb": n_ship, "launches_soak": n_soak,
             "launches_worlds": n_worlds, "launches_recovery": n_recovery,
             "launches_eval_ba": n_eval_ba, "launches_eval_tables": n_tables,
-            "launches_tools": n_tools,
+            "launches_tools": n_tools, "launches_scaling": n_scaling,
             "max_abs_err": max(rows["max_abs_err"], batched[f"{name}_max_abs_err"]),
             "ms": r0["ms"], "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
             "bound_by": r0.get("bound_by", "bytes"), "library_ms": None,

@@ -1,7 +1,7 @@
 """Seeded synthetic back-end inputs with ground truth, made with numpy.
 
-Small problems of known answer for checks that run without svo_tpu: the
-card held against the CPU (chip_smoke.py), repeatability, timing. Three
+Problems of known answer for checks that run without svo_tpu: the
+card held against the CPU (chip_smoke.py), repeatability, timing. Four
 generators, each a function of a seed:
 
 - ba_problem: K cameras along +z looking at scattered points, noisy stereo
@@ -10,7 +10,10 @@ generators, each a function of a seed:
   integrated from relative motions with a constant bias, as VO drifts,
   with its observations in the COO ring (the input of refine_global);
 - drifted_graph: a chain whose estimates drift while its edges measure the
-  true relative motions, closed by one strong edge (a PoseGraph).
+  true relative motions, closed by one strong edge (a PoseGraph);
+- make_problem: tests/test_ba.py's generator, draw for draw, on its own
+  640x480 camera (VGA_*): the problem of svo_tpu's scaling harness, up to
+  global-map sizes (16 cameras x 32,768 points, ~400k observations).
 
 Everything comes back as CPU tensors; move it with `.to(device)` per leaf.
 """
@@ -26,6 +29,9 @@ from svo_tpu_torch.pipeline.state import MapState, tensor
 
 FX, CX, CY, BASELINE = 300.0, 160.0, 120.0, 0.5
 K_MAT = np.array([[FX, 0, CX], [0, FX, CY], [0, 0, 1]], np.float32)
+# make_problem's camera: tests/test_ba.py's FX, FY, CX, CY, BASELINE, K_MAT
+VGA_FX, VGA_FY, VGA_CX, VGA_CY, VGA_BASELINE = 500.0, 500.0, 320.0, 240.0, 0.5
+VGA_K_MAT = np.array([[VGA_FX, 0, VGA_CX], [0, VGA_FY, VGA_CY], [0, 0, 1]], np.float32)
 
 
 def _rot_y(a: float) -> np.ndarray:
@@ -170,3 +176,66 @@ def drifted_graph(seed: int, n: int = 10) -> PoseGraph:
         edge_T=tensor(np.concatenate([rel, closure]).astype(np.float32)),
         edge_w=tensor(np.concatenate([np.ones(n - 1), [5.0]]).astype(np.float32)),
     )
+
+
+def make_problem(rng: np.random.Generator, n_cams: int = 5, n_pts: int = 120,
+                 noise_px: float = 0.5, perturb: bool = True, stereo: bool = True,
+                 drop_frac: float = 0.0):
+    """(BAProblem, T_cw_true (K,4,4) float64, pts_true (P,3) float64): a copy
+    of tests/test_ba.py::make_problem, the same draws from `rng` in the same
+    order and the same power-of-two observation padding, so the same rng
+    state gives the same problem bit for bit. Cameras along +z looking
+    forward, points uniform in a box ahead, every visible point observed
+    by every camera (stereo with probability 0.5), cameras 1.. and the
+    points perturbed."""
+    from scipy.spatial.transform import Rotation
+
+    T_wc = np.tile(np.eye(4, dtype=np.float64), (n_cams, 1, 1))
+    for i in range(n_cams):
+        T_wc[i, :3, 3] = [0.1 * i, 0.02 * i, 0.6 * i]
+        T_wc[i, :3, :3] = Rotation.from_euler("yxz", [0.02 * i, 0.01 * i, 0.0]).as_matrix()
+    T_cw_true = np.linalg.inv(T_wc)
+    pts_true = np.stack([rng.uniform(-8, 8, n_pts), rng.uniform(-3, 3, n_pts),
+                         rng.uniform(8, 30, n_pts)], axis=-1)
+
+    obs_cam, obs_pnt, obs_uv = [], [], []
+    for c in range(n_cams):
+        Xc = (T_cw_true[c, :3, :3] @ pts_true.T).T + T_cw_true[c, :3, 3]
+        u = VGA_FX * Xc[:, 0] / Xc[:, 2] + VGA_CX
+        v = VGA_FY * Xc[:, 1] / Xc[:, 2] + VGA_CY
+        ur = u - VGA_FX * VGA_BASELINE / Xc[:, 2]
+        vis = (Xc[:, 2] > 1) & (u > 0) & (u < 640) & (v > 0) & (v < 480)
+        for p in np.nonzero(vis)[0]:
+            if rng.uniform() < drop_frac:
+                continue
+            un = u[p] + rng.normal(0, noise_px)
+            vn = v[p] + rng.normal(0, noise_px)
+            urn = ur[p] + rng.normal(0, noise_px) if stereo and rng.uniform() < 0.5 else -1.0
+            obs_cam.append(c)
+            obs_pnt.append(p)
+            obs_uv.append([un, vn, urn])
+
+    O = len(obs_cam)
+    O_pad = 1 << int(np.ceil(np.log2(O + 1)))
+    pad = O_pad - O
+
+    T_cw_init = T_cw_true.copy()
+    pts_init = pts_true.copy()
+    if perturb:
+        for i in range(1, n_cams):
+            dR = Rotation.from_rotvec(rng.normal(0, 0.01, 3)).as_matrix()
+            T_cw_init[i, :3, :3] = dR @ T_cw_init[i, :3, :3]
+            T_cw_init[i, :3, 3] += rng.normal(0, 0.05, 3)
+        pts_init = pts_true + rng.normal(0, 0.1, pts_true.shape)
+
+    problem = BAProblem(
+        T_cw=tensor(T_cw_init.astype(np.float32)),
+        cam_valid=torch.ones(n_cams, dtype=torch.bool),
+        points=tensor(pts_init.astype(np.float32)),
+        pnt_valid=torch.ones(n_pts, dtype=torch.bool),
+        obs_cam=tensor(np.pad(obs_cam, (0, pad)).astype(np.int32)),
+        obs_pnt=tensor(np.pad(obs_pnt, (0, pad)).astype(np.int32)),
+        obs_uv=tensor(np.pad(np.asarray(obs_uv, np.float32).reshape(O, 3), ((0, pad), (0, 0)))),
+        obs_valid=tensor(np.arange(O_pad) < O),
+    )
+    return problem, T_cw_true, pts_true

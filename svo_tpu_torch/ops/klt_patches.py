@@ -133,11 +133,12 @@ def extract_klt_patches(
     corners = [_as(c, torch.int32) for c in corners]
     v = _as(valid, torch.bool)  # the kernel reads a bool's byte
     out = torch.empty((4, *valid.shape, py, px), dtype=torch.float32, device=prev.device)
-    code = lib.svo_klt_patches(
-        prev.data_ptr(), gx.data_ptr(), gy.data_ptr(), curr.data_ptr(), S, H, W,
-        *(c.data_ptr() for c in corners), v.data_ptr(), N, py, px, out.data_ptr(),
-        torch.cuda.current_stream(prev.device).cuda_stream,
-    )
+    with torch.cuda.device(prev.device):  # the launch goes to the current card
+        code = lib.svo_klt_patches(
+            prev.data_ptr(), gx.data_ptr(), gy.data_ptr(), curr.data_ptr(), S, H, W,
+            *(c.data_ptr() for c in corners), v.data_ptr(), N, py, px, out.data_ptr(),
+            torch.cuda.current_stream(prev.device).cuda_stream,
+        )
     _build.check(lib, code, "klt_patches")
     extract_klt_patches.launches += 1
     return out.unbind(0)

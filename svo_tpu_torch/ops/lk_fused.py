@@ -260,12 +260,13 @@ def lk_track_level(
     imgs = [im.contiguous() for im in (prev, gx, gy, curr)]
     pos_c, guess_c, valid_c = pos.contiguous(), guess.contiguous(), valid.contiguous()
     out = torch.empty(tuple(valid.shape) + (8,), dtype=torch.float32, device=prev.device)
-    code = lib.svo_lk_level(
-        *(im.data_ptr() for im in imgs), S, H, W,
-        pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), N,
-        window, py, margin_x, margin_y, max_iters, eps * eps, min_eig_threshold,
-        out.data_ptr(), torch.cuda.current_stream(prev.device).cuda_stream,
-    )
+    with torch.cuda.device(prev.device):  # the launch goes to the current card
+        code = lib.svo_lk_level(
+            *(im.data_ptr() for im in imgs), S, H, W,
+            pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), N,
+            window, py, margin_x, margin_y, max_iters, eps * eps, min_eig_threshold,
+            out.data_ptr(), torch.cuda.current_stream(prev.device).cuda_stream,
+        )
     _build.check(lib, code, "lk_level")
     lk_track_level.launches += 1
     return guess + out[..., 0:2], out[..., 2], out[..., 3] > 0.5, out[..., 4] > 0.5
@@ -379,14 +380,15 @@ def lk_track_pyramid(
         dims.extend((*four[0].shape[-2:], pys[level], iters[level]))
     pos_c, guess_c, valid_c = pos.contiguous(), guess0.contiguous(), valid.contiguous()
     out = torch.empty((*valid.shape, 4), dtype=torch.float32, device=pos.device)
-    code = lib.svo_lk_track(
-        (ctypes.c_void_p * (4 * L))(*(im.data_ptr() for im in imgs)),
-        (ctypes.c_int * (4 * L))(*dims), L, S,
-        pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), valid.shape[-1],
-        window, margin_x, margin_y, float(pad_x), float(pad_y), eps * eps,
-        min_eig_threshold, out.data_ptr(),
-        torch.cuda.current_stream(pos.device).cuda_stream,
-    )
+    with torch.cuda.device(pos.device):  # the launch goes to the current card
+        code = lib.svo_lk_track(
+            (ctypes.c_void_p * (4 * L))(*(im.data_ptr() for im in imgs)),
+            (ctypes.c_int * (4 * L))(*dims), L, S,
+            pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), valid.shape[-1],
+            window, margin_x, margin_y, float(pad_x), float(pad_y), eps * eps,
+            min_eig_threshold, out.data_ptr(),
+            torch.cuda.current_stream(pos.device).cuda_stream,
+        )
     _build.check(lib, code, "lk_level (whole call)")
     lk_track_pyramid.launches += 1
     return out[..., 0:2], out[..., 2], out[..., 3] > 0.5

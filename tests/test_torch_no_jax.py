@@ -5,8 +5,10 @@ module of svo_tpu_torch (the kernel wrappers, the batched engine, the
 back-end, the checkpoint module, the probe, the tracker timing script,
 the readers, the three entry points, the reference CPU pipeline, the soak,
 worlds, recovery, refinement-sweep, fleet and EuRoC harnesses, the
-distributed modules, the soak's reference drift and the timing and
-profiling tools among them; cv2 only when
+distributed modules, the soak's reference drift, the timing and
+profiling tools and the scaling harness with its two workers and its
+trace among them;
+cv2 only when
 the reference pipeline is built) and chip_smoke.py,
 runs detect_fast and detect_orb on the CPU, constructs
 BatchedStereoVO there and builds its refiner; the EuRoC reader must ask
@@ -49,7 +51,9 @@ assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
         "svo_tpu_torch.eval_recovery", "svo_tpu_torch.eval_ba", "svo_tpu_torch.eval_fleet",
         "svo_tpu_torch.eval_euroc", "svo_tpu_torch.soak_ref", "svo_tpu_torch.bench_batched",
         "svo_tpu_torch.time_chunk", "svo_tpu_torch.profile_chunk", "svo_tpu_torch.klt_bench",
-        "svo_tpu_torch.microbench", "svo_tpu_torch._staging"} <= set(mods)
+        "svo_tpu_torch.microbench", "svo_tpu_torch._staging", "svo_tpu_torch.scaling_eff",
+        "svo_tpu_torch.scaling_worker", "svo_tpu_torch.frontend_scaling_worker",
+        "svo_tpu_torch.scaling_trace"} <= set(mods)
 assert "cv2" not in sys.modules  # the reference pipeline imports it when built
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config
@@ -77,13 +81,18 @@ assert callable(bvo.make_refiner())
 import chip_smoke
 assert not torch.cuda.is_available()
 from svo_tpu_torch import (bench_batched, eval_ba, eval_euroc, eval_fleet, eval_recovery,
-                           eval_worlds, klt_bench, microbench, multihost_ba_worker, profile_chunk,
-                           run_euroc, run_kitti, run_synthetic, soak, soak_ref, time_chunk)
+                           eval_worlds, frontend_scaling_worker, klt_bench, microbench,
+                           multihost_ba_worker, profile_chunk, run_euroc, run_kitti, run_synthetic,
+                           scaling_eff, scaling_trace, scaling_worker, soak, soak_ref,
+                           time_chunk)
+worker = ["--rank", "0", "--nprocs", "2", "--port", "1", "--out", "x"]
 for cli, argv in ((run_synthetic, []), (run_kitti, []), (run_euroc, ["--root", "x"]), (soak, []),
                   (eval_worlds, []), (multihost_ba_worker, ["--rank", "0", "--port", "1", "--out", "x"]),
                   (eval_recovery, []), (eval_ba, []), (eval_fleet, []), (eval_euroc, []),
                   (bench_batched, []), (time_chunk, []), (profile_chunk, []), (klt_bench, []),
-                  (microbench, [])):
+                  (microbench, []), (scaling_eff, []), (scaling_trace, []),
+                  (scaling_worker, worker),
+                  (frontend_scaling_worker, worker)):
     assert cli.parse_args(argv).device == "cuda"  # the card unless asked
 assert not hasattr(soak_ref.parse_args([]), "device")
 assert chip_smoke.main() == 1
@@ -102,4 +111,4 @@ def test_port_imports_and_runs_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.strip().splitlines()
     assert lines == [lines[-1]] and lines[-1].startswith("IMPORTED")
-    assert int(lines[-1].split()[1]) >= 41
+    assert int(lines[-1].split()[1]) >= 45
