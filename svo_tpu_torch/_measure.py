@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import subprocess
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -72,7 +73,10 @@ def per_second(fn, work: int, reps: int = 10, device="cuda") -> float:
 def device_events(fn) -> list:
     """The profiler's records of every device activity (kernels, fills and
     copies) of one call of fn, by name: each has .key, .count and
-    .self_device_time_total (microseconds)."""
+    .self_device_time_total (microseconds). Read from the trace's raw
+    records: key_averages() would first build the tree of every host op,
+    which takes tens of seconds for one frame step's ~7,700 activities and
+    their ops, and gives the same counts and times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,7 +84,18 @@ def device_events(fn) -> list:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        rec = by_name.get(e.name())
+        if rec is None:
+            rec = by_name[e.name()] = SimpleNamespace(key=e.name(), count=0,
+                                                      self_device_time_total=0.0)
+        rec.count += 1
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            rec.self_device_time_total += e.duration_ns() / 1e3  # as key_averages()
+    return list(by_name.values())
 
 
 def device_name(device) -> str:

@@ -22,23 +22,23 @@ world (eval_worlds' first row, 376x1241):
    the result is the unaligned trajectory error of each arm after the
    injection.
 
-svo_tpu keeps its PnP key in the state, so both arms draw the same noise;
-the port's noise comes from the engine's generator, whose state is taken at
-the injection and restored before each arm (recover_from(..., backend=False)
-gives arm B no back-end: the arms must then be equal bit for bit). A
-point's birth frame is the first frame that observed it, read off the
-observation ring, so the run refuses to inject once the ring has wrapped.
---seed seeds the PnP generator; --small renders 184x320 frames with fx
-200. It runs on the card unless --device cpu is given. The result has the keys
-of svo_tpu's RECOVERY_r05.json (numbers unrounded), plus the device;
---out writes it, and one summary line is printed.
+The PnP key is part of the state, as in svo_tpu, so both arms, each
+started from a copy of the corrupted (arm A) or swept (arm B) state, draw
+the same noise; the result's arm_rng_keys are the keys they start from
+(recover_from(..., backend=False) gives arm B no back-end: the arms must
+then be equal bit for bit). A point's birth frame is the first frame that
+observed it, read off the observation ring, so the run refuses to inject
+once the ring has wrapped. --seed is the PnP key's seed; --small renders
+184x320 frames with fx 200. It runs on the card unless --device cpu is
+given. The result has the keys of svo_tpu's RECOVERY_r05.json (numbers
+unrounded), plus the device; --out writes it, and one summary line is
+printed.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import hashlib
 import json
 import os
 import sys
@@ -67,7 +67,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--rot-deg", type=float, default=4.0,
                    help="total injected rotation at the newest frame")
     p.add_argument("--trans-m", type=float, default=0.8)
-    p.add_argument("--seed", type=int, default=0, help="the PnP generator's seed")
+    p.add_argument("--seed", type=int, default=0, help="the PnP key's seed")
     p.add_argument("--small", action="store_true", help="184x320 images, fx 200")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--lk-engine", default="fused", choices=("patches", "fused"))
@@ -141,8 +141,9 @@ def _apply(state, res, frame):
                           pose=res.poses[frame])
 
 
-def _digest(generator) -> str:
-    return hashlib.sha256(generator.get_state().cpu().numpy().tobytes()).hexdigest()[:16]
+def _key(state) -> list[int]:
+    """The state's PnP key as its two uint32 words."""
+    return [int(w) for w in state.rng.cpu().numpy().view(np.uint32)]
 
 
 def render(args):
@@ -180,7 +181,7 @@ def _chunks(vo, state, ls, rs, c_lo, c_hi, refine=None, refine_every=0):
     for c in range(c_lo, c_hi):
         sl = slice(1 + c * CH, 1 + (c + 1) * CH)
         state = vo._chunk_step(state, torch.from_numpy(ls[sl]).to(vo.device),
-                               torch.from_numpy(rs[sl]).to(vo.device), vo.generator)
+                               torch.from_numpy(rs[sl]).to(vo.device))
         if refine_every and (c + 1) % refine_every == 0:
             state = _apply(state, refine(state), state.frame_id.long())
     return state
@@ -212,7 +213,6 @@ def recover_from(vo, ls, rs, gt, args, log=lambda m: None, backend=True):
         return refine_global(st.map, st.poses, st.frame_id, K_mat, bfx)
 
     healthy = vo.state
-    gen0 = vo.generator.get_state()
     corrupt = inject_drift(healthy, lo, hi, args.rot_deg, args.trans_m)
     pose_err = float(np.linalg.norm(corrupt.poses[hi, :3, 3].cpu().numpy() - gt[hi][:3, 3]))
     log(f"injected drift: newest-frame pose error {pose_err:.2f} m / {args.rot_deg:.1f} deg "
@@ -230,11 +230,10 @@ def recover_from(vo, ls, rs, gt, args, log=lambda m: None, backend=True):
 
     CH = vo.chunk
     n = 1 + ((args.frames - 1) // CH) * CH
-    arms, digests, kf = {}, [], {}
+    arms, keys, kf = {}, [], {}
     for arm, start, every in (("a", corrupt, 0),
                               ("b", swept, REFINE_EVERY) if backend else ("b", corrupt, 0)):
-        vo.generator.set_state(gen0)  # one noise for both arms, as svo_tpu's state-held key gives
-        digests.append(_digest(vo.generator))
+        keys.append(_key(start))
         vo.state = _chunks(vo, _clone(start), ls, rs, hi // CH, (n - 1) // CH, refine, every)
         arms[arm] = vo.state.poses[:n].cpu().numpy()
         kf[arm] = int(vo.state.kf_flags[args.inject_at:n].sum())
@@ -262,9 +261,9 @@ def recover_from(vo, ls, rs, gt, args, log=lambda m: None, backend=True):
         "recovered": bool(ate_b < 0.5 * ate_a),
         "backend_in_arm_b": backend,
         "seed": vo.seed,
-        # the generator's state at the start of each arm: equal, or the arms
-        # differ by noise as well as by the back-end
-        "arm_generator_states": digests,
+        # the PnP key each arm starts from: equal, or the arms differ by
+        # noise as well as by the back-end
+        "arm_rng_keys": keys,
         "image": f"{ls.shape[1]}x{ls.shape[2]}",
         "chunk": CH,
         "kf_cadence": args.cadence,

@@ -18,14 +18,15 @@ accepted is noted. Unless --skip-ref, the reference-equivalent CPU pipeline
 (eval/reference_cpu.py) runs each sequence on the same frames, frame by
 frame as they are rendered, for the ref_ate_* columns.
 
-The batched streams draw their PnP noise from one generator (ROADMAP C),
-so a world's ATE is comparable with svo_tpu's WORLDS_r05.json in order of
-magnitude, not to the digit. It runs on the card unless --device cpu is
-given; --small renders 184x320 frames. --limit N runs the first N frames
-of each --frames-long sequence: the loop, slalom and turns trajectories are
-spread over the whole sequence, so a shorter --frames would make them
-sharper, not shorter. The result is a JSON object with one row per world;
---out writes it.
+Stream s is keyed by PRNGKey(s), as svo_tpu's BatchedStereoVO keys it,
+so the streams draw svo_tpu's PnP noise; a world's ATE still differs from
+svo_tpu's WORLDS_r05.json by the rounding of another machine's arithmetic,
+which a keyframe or a PnP pick can amplify. It runs on the card unless
+--device cpu is given; --small renders 184x320 frames. --limit N runs the
+first N frames of each --frames-long sequence: the loop, slalom and turns
+trajectories are spread over the whole sequence, so a shorter --frames
+would make them sharper, not shorter. The result is a JSON object with
+one row per world; --out writes it.
 """
 
 from __future__ import annotations

@@ -89,6 +89,7 @@ def main(argv=None) -> int:
 
     from svo_tpu_torch.ops.klt_patches import extract_klt_patches
     from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
+    from svo_tpu_torch.ops.random import split_gumbel
     from svo_tpu_torch.parallel import multihost
     from svo_tpu_torch.parallel.multi_seq import MultiStereoVO
     from svo_tpu_torch.pipeline.odometry import resolve_device
@@ -144,6 +145,7 @@ def main(argv=None) -> int:
             "launches": {
                 "klt_patches": extract_klt_patches.launches,
                 "lk_level": lk_track_level.launches + lk_track_pyramid.launches,
+                "threefry": split_gumbel.launches,
             },
         }
         if args.arrays:

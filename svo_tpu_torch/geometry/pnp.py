@@ -5,9 +5,9 @@ correspondences drawn by Gumbel top-6, a 6-point DLT per set, MSAC
 scoring, locally optimised (LO) Gauss-Newton refinement from the MSAC
 winner and the prior pose, and the annealed rescue from the prior.
 
-Torch cannot reproduce jax's threefry bits, so the Gumbel noise is an
-argument: the caller draws it (pipeline/frontend.py draws it from the
-engine's torch.Generator) and a test can hand in the noise jax drew.
+The Gumbel noise is an argument: the frame step (pipeline/frontend.py)
+draws it from the state's key with ops/random.py, svo_tpu's
+jax.random.gumbel, and a test can hand in the noise jax drew.
 
 The stream axis: svo_tpu batches the solve with jax.vmap; here every
 argument may carry leading axes (Xw (..., N, 3), noise (..., H, N), T_init
@@ -32,16 +32,6 @@ class PnPResult(NamedTuple):
     inliers: torch.Tensor       # (..., N) bool, subset of `valid`
     inlier_ratio: torch.Tensor  # (...,) |inliers| / |valid|
     ok: torch.Tensor            # (...,) bool, solution sanity
-
-
-def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
-    """Standard Gumbel noise, -log(-log(U)) with U in [tiny, 1), as
-    jax.random.gumbel computes it from its uniform draw. One draw of shape
-    (S, hypotheses, N) serves S streams: stream s takes row s, so the
-    streams' noise is independent without a generator each."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
 
 
 def _normalize_pixels(K: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:

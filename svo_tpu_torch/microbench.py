@@ -11,7 +11,8 @@ with --device cpu) of: the pyramid and its gradients; KLT temporal (21x21)
 and stereo (11x11), 12 iterations, 4 levels, with the chosen engine; the
 FAST score map; detect with FAST and with ORB; triangulate_dlt and
 triangulate_rectified; ransac_pnp with 128 hypotheses, its Gumbel noise
-drawn on each call from an explicit torch.Generator; and the full
+drawn on each call from PRNGKey(0) (ops/random.gumbel, as svo_tpu's
+ransac_pnp draws from the key it is given); and the full
 non-keyframe frame step (step_body with kf_mode="never", 5 reps) from
 example_state after one step has moved it on. svo_tpu's script times that
 step under the data-dependent rule, which on this state (an empty
@@ -45,10 +46,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 def example_state(cfg, device=None):
     """The empty single-stream state of svo_tpu's __graft_entry__.py:38-60
     (_example_state): no features, an empty map, the pyramid of a zero
-    image, frame 0 a keyframe, identity poses."""
+    image, frame 0 a keyframe, identity poses, PRNGKey(0)."""
     import torch
 
     from svo_tpu_torch.ops.klt import KltTracker
+    from svo_tpu_torch.ops.random import prng_key
     from svo_tpu_torch.pipeline.state import FeatureSet, MapState, VoState
 
     H, W = cfg.image_height, cfg.image_width
@@ -69,6 +71,7 @@ def example_state(cfg, device=None):
         poses=eye.repeat(F, 1, 1),
         kf_flags=torch.zeros((F,), dtype=torch.bool, device=device),
         metrics=torch.zeros((F, 5), dtype=torch.float32, device=device),
+        rng=prng_key(0, device),
     )
 
 
@@ -79,11 +82,12 @@ def bench(args: argparse.Namespace) -> dict:
     from svo_tpu_torch._measure import device_name, mean_ms
     from svo_tpu_torch.config import Config, KltParams, RansacParams
     from svo_tpu_torch.geometry import camera as cam_mod
-    from svo_tpu_torch.geometry.pnp import gumbel_noise, ransac_pnp
+    from svo_tpu_torch.geometry.pnp import ransac_pnp
     from svo_tpu_torch.geometry.triangulate import triangulate_dlt, triangulate_rectified
     from svo_tpu_torch.ops.detect import detect
     from svo_tpu_torch.ops.fast import fast_score
     from svo_tpu_torch.ops.klt import KltTracker
+    from svo_tpu_torch.ops.random import gumbel, prng_key
     from svo_tpu_torch.pipeline import frontend
     from svo_tpu_torch.pipeline.odometry import resolve_device
 
@@ -102,7 +106,7 @@ def bench(args: argparse.Namespace) -> dict:
     Xw = t(np.stack([rng.uniform(-10, 10, N), rng.uniform(-3, 3, N), rng.uniform(5, 40, N)], -1))
     uv = t(rng.uniform(0, 300, (N, 2)))
     uv_r = uv - 10.0
-    gen = torch.Generator(device=dev).manual_seed(0)
+    key = prng_key(0, dev)
     cfg = Config(use_orb=False)
     cfg_orb = Config(use_orb=True)
     tkl = KltParams(window=21, max_level=3, max_iters=12)
@@ -126,15 +130,14 @@ def bench(args: argparse.Namespace) -> dict:
          lambda: triangulate_rectified(camera.fx, camera.baseline, uv, uv_r, camera.K)),
         (f"RANSAC-PnP ({N} pts, {rp.num_hypotheses} hyp)",
          lambda: ransac_pnp(camera.K, Xw, uv, valid,
-                            gumbel_noise((rp.num_hypotheses, N), gen, dev), rp)),
+                            gumbel(key, (rp.num_hypotheses, N)), rp)),
     ]
     rows = [{"name": name, "ms": mean_ms(fn, dev, args.reps)} for name, fn in stages]
 
     cfg_full = Config(use_orb=False, image_height=H, image_width=W)
 
     def step(s, kf_mode):
-        return frontend.step_body(s, img, img2, camera, cfg_full, kf_mode=kf_mode, generator=gen,
-                                  lk_engine=eng)
+        return frontend.step_body(s, img, img2, camera, cfg_full, kf_mode=kf_mode, lk_engine=eng)
 
     state = step(example_state(cfg_full, dev), "dynamic")
     rows.append({"name": "FULL STEP (non-KF path)",

@@ -85,9 +85,6 @@ class BatchedStereoVO:
         self._refine = None
         # the RefineResult of the last sweep (its costs say each stream's regime)
         self.last_refine = None
-        # one generator, seeded in start(): each step draws the PnP noise of
-        # all streams in one (S, hypotheses, N) call, stream s taking row s
-        self.generator = torch.Generator(device=self.device)
         self._boot = frontend.make_bootstrap(self.camera, cfg, lk_engine)
         self._chunk_step = frontend.make_cadenced_chunk_step(
             self.camera, cfg, chunk, kf_cadence, lk_engine
@@ -110,13 +107,13 @@ class BatchedStereoVO:
 
     def start(self, lefts, rights, seed: int = 0):
         """lefts/rights: (S, H, W) first frame of each stream (numpy arrays
-        or tensors). svo_tpu splits one key per stream from seed + s; here
-        `seed` seeds the one generator whose (S, hypotheses, N) draws give
-        every stream its own noise."""
+        or tensors). Stream s is keyed by PRNGKey(seed + s) (uint32), as
+        svo_tpu keys it, so stream s draws what StereoVO(seed=seed + s)
+        draws, however many streams run beside it."""
         self._check_shape(lefts, "lefts", False)
         self._check_shape(rights, "rights", False)
-        self.generator.manual_seed(seed)
-        self.state = self._boot(self._f32(lefts), self._f32(rights))
+        seeds = [(seed + s) & 0xFFFFFFFF for s in range(self.S)]
+        self.state = self._boot(self._f32(lefts), self._f32(rights), seeds)
 
     def process(self, lefts, rights):
         """One frame for every stream: (S, H, W). Dynamic keyframe rule."""
@@ -126,7 +123,7 @@ class BatchedStereoVO:
         self._check_shape(rights, "rights", False)
         self.state = frontend.step_body(
             self.state, self._f32(lefts), self._f32(rights), self.camera, self.cfg,
-            generator=self.generator, lk_engine=self.lk_engine,
+            lk_engine=self.lk_engine,
         )
 
     def process_chunk(self, lefts_u8, rights_u8):
@@ -141,7 +138,6 @@ class BatchedStereoVO:
             self.state,
             torch.as_tensor(lefts_u8).to(self.device),
             torch.as_tensor(rights_u8).to(self.device),
-            self.generator,
         )
 
     def trajectories(self, n_frames: int) -> np.ndarray:

@@ -14,8 +14,8 @@ streams.
 All streams share one Config and one camera. Stream s is seeded with
 seed + s, as svo_tpu keys it, so stream s of a fleet is StereoVO(seed=seed+s)
 on the same frames, bit for bit, however the streams are split over the
-ranks. (BatchedStereoVO, which steps S streams on one card, draws every
-stream's noise from one generator and does not have this property.)
+ranks, and equal to stream s of BatchedStereoVO(seed=seed) on one card
+(within its batched-against-single bounds: the same keys, other op order).
 """
 
 from __future__ import annotations

@@ -12,6 +12,12 @@ round trip per frame: every data-dependent choice is a torch.where, as in
 svo_tpu. Only kf_mode="dynamic" branches on the host, once per frame, and
 the window BA (cfg.ba.enabled) once per keyframe step.
 
+The PnP noise comes from the state's threefry key, as in svo_tpu: each step
+splits state.rng, keeps one half and draws its (hypotheses, N) Gumbel noise
+from the other (ops/random.split_gumbel, one kernel launch on the card for
+all streams). A step is therefore a function of state and frames alone,
+and stream s draws what svo_tpu's stream s draws from the same key.
+
 Scatters follow jax's mode="drop": rows whose index is out of range are
 written to a spare row that is then cut off (ops/index.scatter_drop), never
 raised on and never read back.
@@ -44,11 +50,12 @@ from svo_tpu_torch.ba.window import extract_kf_window, write_back_kf
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry import se3
 from svo_tpu_torch.geometry.camera import Camera, project as camera_project
-from svo_tpu_torch.geometry.pnp import gumbel_noise, ransac_pnp
+from svo_tpu_torch.geometry.pnp import ransac_pnp
 from svo_tpu_torch.geometry.triangulate import triangulate_dlt, triangulate_rectified
 from svo_tpu_torch.ops import detect as detect_mod
 from svo_tpu_torch.ops.index import scatter_drop, take_rows
 from svo_tpu_torch.ops.klt import KltTracker
+from svo_tpu_torch.ops.random import prng_key, split_gumbel
 from svo_tpu_torch.pipeline.state import FeatureSet, MapState, VoState
 
 
@@ -230,7 +237,6 @@ def step_body(
     camera: Camera,
     cfg: Config,
     kf_mode: str = "dynamic",
-    generator: torch.Generator | None = None,
     pnp_noise: torch.Tensor | None = None,
     lk_engine: str = "patches",
 ) -> VoState:
@@ -238,14 +244,15 @@ def step_body(
 
     kf_mode: "dynamic" (the reference's data-dependent keyframe rule plus
     the max-interval trigger), "never" (track only) or "always"
-    (unconditional replenish). The PnP sampling noise is `pnp_noise`
-    ((num_hypotheses, N) Gumbel) if given, else drawn from `generator`.
+    (unconditional replenish). The step splits state.rng and draws the PnP
+    sampling noise ((num_hypotheses, N) Gumbel) from it; `pnp_noise`, if
+    given, is used in its place (the key is split all the same).
     lk_engine: the KLT engine of all three tracker calls, "patches" or
     "fused" (ops/klt.py).
 
     With a batched state (every leaf with a leading (S,)) and images
-    (S, H, W) it steps S streams at once: pnp_noise is (S, hypotheses, N),
-    drawn from `generator` in one call if not given. Under "dynamic" every stream
+    (S, H, W) it steps S streams at once: the keys are (S, 2), the noise
+    (S, hypotheses, N), drawn in one call. Under "dynamic" every stream
     keeps its own keyframe decision: replenishment is computed for all
     streams and selected per stream, as jax.vmap of svo_tpu's lax.cond; it
     is skipped when no stream keyframes."""
@@ -325,14 +332,11 @@ def step_body(
     # --- pose: LO-RANSAC PnP with the previous pose as an extra start ---
     M = state.map.points.shape[-2]
     Xw = take_rows(state.map.points, tracked.point_id.clamp(0, M - 1))
-    if pnp_noise is None:
-        if generator is None:
-            raise ValueError("step_body needs a generator or pnp_noise")
-        pnp_noise = gumbel_noise(
-            Xw.shape[:-2] + (cfg.ransac.num_hypotheses, Xw.shape[-2]), generator, dev
-        )
+    rng, noise = split_gumbel(state.rng, (cfg.ransac.num_hypotheses, Xw.shape[-2]))
+    if pnp_noise is not None:
+        noise = pnp_noise
     pres = ransac_pnp(
-        camera.K, Xw, tracked.pos, tracked.valid, pnp_noise, cfg.ransac,
+        camera.K, Xw, tracked.pos, tracked.valid, noise, cfg.ransac,
         T_init=se3.inverse(state.pose),
     )
     pnp_ok = pres.ok
@@ -454,6 +458,7 @@ def step_body(
         poses=poses,
         kf_flags=kf_flags,
         metrics=scatter_drop(state.metrics, fid[..., None], metrics_row[..., None, :]),
+        rng=rng,
     )
 
 
@@ -471,11 +476,11 @@ def _check_chunk(state: VoState, lefts_u8, rights_u8) -> None:
 
 def make_step(camera: Camera, cfg: Config, lk_engine: str = "patches"):
     """Single-frame step with the data-dependent keyframe rule:
-    (state, left f32, right f32, generator) -> state."""
+    (state, left f32, right f32) -> state."""
 
-    def step(state: VoState, left, right, generator) -> VoState:
+    def step(state: VoState, left, right) -> VoState:
         return step_body(state, left, right, camera, cfg, kf_mode="dynamic",
-                         generator=generator, lk_engine=lk_engine)
+                         lk_engine=lk_engine)
 
     return step
 
@@ -486,16 +491,16 @@ def make_chunked_step(camera: Camera, cfg: Config, chunk: int, lk_engine: str = 
     as a loop. Each frame reads its keyframe decision on the host once
     (step_body's one host read in this mode).
 
-    Returns (state, lefts_u8 (K,H,W), rights_u8, generator) -> state; a
-    batched state of S streams takes (K,S,H,W) frame-major inputs."""
+    Returns (state, lefts_u8 (K,H,W), rights_u8) -> state; a batched
+    state of S streams takes (K,S,H,W) frame-major inputs."""
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be positive")
     step = make_step(camera, cfg, lk_engine)
 
-    def run_chunk(state: VoState, lefts_u8, rights_u8, generator) -> VoState:
+    def run_chunk(state: VoState, lefts_u8, rights_u8) -> VoState:
         _check_chunk(state, lefts_u8, rights_u8)
         for l, r in zip(lefts_u8, rights_u8):
-            state = step(state, l.to(torch.float32), r.to(torch.float32), generator)
+            state = step(state, l.to(torch.float32), r.to(torch.float32))
         return state
 
     return run_chunk
@@ -509,20 +514,20 @@ def make_cadenced_chunk_step(
     (kf_mode="always") followed by cadence-1 track-only steps
     (kf_mode="never"), so no step branches on data.
 
-    Returns (state, lefts_u8 (K,H,W), rights_u8, generator) -> state;
+    Returns (state, lefts_u8 (K,H,W), rights_u8) -> state;
     `chunk` must be a multiple of `cadence`. A batched state of S streams
     takes (K,S,H,W) frame-major inputs and steps the streams in lockstep
     (svo_tpu's n_streams argument is read off the state here)."""
     if cadence < 1 or chunk % cadence:
         raise ValueError(f"chunk {chunk} must be a positive multiple of cadence {cadence}")
 
-    def run_chunk(state: VoState, lefts_u8, rights_u8, generator) -> VoState:
+    def run_chunk(state: VoState, lefts_u8, rights_u8) -> VoState:
         _check_chunk(state, lefts_u8, rights_u8)
         for i, (l, r) in enumerate(zip(lefts_u8, rights_u8)):
             state = step_body(
                 state, l.to(torch.float32), r.to(torch.float32), camera, cfg,
                 kf_mode="always" if i % cadence == 0 else "never",
-                generator=generator, lk_engine=lk_engine,
+                lk_engine=lk_engine,
             )
         return state
 
@@ -531,12 +536,20 @@ def make_cadenced_chunk_step(
 
 def make_bootstrap(camera: Camera, cfg: Config, lk_engine: str = "patches"):
     """Bootstrap: frame 0 is always a keyframe — detect, stereo-match,
-    triangulate at the identity pose. Returns (left, right) -> VoState;
-    (S, H, W) stacks of first frames give the batched state of S streams."""
+    triangulate at the identity pose. Returns (left, right, seed) ->
+    VoState, svo_tpu's signature: the state's key is PRNGKey(seed).
+    (S, H, W) stacks of first frames with S seeds give the batched state of
+    S streams, stream s keyed by seed[s] (svo_tpu's vmapped bootstrap)."""
 
-    def bootstrap(left: torch.Tensor, right: torch.Tensor) -> VoState:
+    def bootstrap(left: torch.Tensor, right: torch.Tensor, seed) -> VoState:
         dev = left.device
         lead = tuple(left.shape[:-2])  # () for one stream, (S,) for a stack
+        rng = prng_key(seed, dev)
+        if tuple(rng.shape[:-1]) != lead:
+            raise ValueError(
+                f"seed: expected one seed a stream, shape {lead}, for images "
+                f"{tuple(left.shape)}; got {tuple(rng.shape[:-1])}"
+            )
         N = cfg.capacity.max_features
         F = cfg.capacity.max_frames
         pyr_l = KltTracker.build_pyramid(left, cfg.temporal_klt.max_level)
@@ -568,6 +581,7 @@ def make_bootstrap(camera: Camera, cfg: Config, lk_engine: str = "patches"):
             poses=pose0[..., None, :, :].repeat((1,) * len(lead) + (F, 1, 1)),
             kf_flags=kf_flags,
             metrics=torch.cat([row0[..., None, :], rest], dim=-2),
+            rng=rng,
         )
 
     return bootstrap

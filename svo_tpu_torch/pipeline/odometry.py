@@ -72,9 +72,10 @@ class StereoVO:
         data-dependent keyframe rule inside the chunk
         (frontend.make_chunked_step, one host read a frame). process() and
         run() use the data-dependent rule.
-        The PnP sampling draws from a torch.Generator on `device` seeded
-        with `seed`. lk_engine picks the KLT engine of every tracker call:
-        "patches" (svo_tpu's default) or "fused" (ops/klt.py)."""
+        The state carries svo_tpu's PnP key, PRNGKey(seed) at start(), so
+        the run draws svo_tpu's noise for the same seed. lk_engine picks
+        the KLT engine of every tracker call: "patches" (svo_tpu's default)
+        or "fused" (ops/klt.py)."""
         if lk_engine not in ENGINES:
             raise ValueError(f"lk_engine {lk_engine!r} is not one of {ENGINES}")
         self.cfg = config
@@ -84,8 +85,6 @@ class StereoVO:
         self.chunk = chunk
         self.kf_cadence = kf_cadence
         self.lk_engine = lk_engine
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
         self._bootstrap = frontend.make_bootstrap(self.camera, config, lk_engine)
         self._step = frontend.make_step(self.camera, config, lk_engine)
         self._chunk_step = None
@@ -115,15 +114,12 @@ class StereoVO:
         return torch.as_tensor(self._prep(img), dtype=torch.float32).to(self.device)
 
     def start(self, left: np.ndarray, right: np.ndarray) -> None:
-        self.generator.manual_seed(self.seed)
-        self.state = self._bootstrap(self._to_device(left), self._to_device(right))
+        self.state = self._bootstrap(self._to_device(left), self._to_device(right), self.seed)
 
     def process(self, left: np.ndarray, right: np.ndarray) -> None:
         if self.state is None:
             raise RuntimeError("call start() first")
-        self.state = self._step(
-            self.state, self._to_device(left), self._to_device(right), self.generator
-        )
+        self.state = self._step(self.state, self._to_device(left), self._to_device(right))
 
     def run(
         self,
@@ -192,9 +188,7 @@ class StereoVO:
         _sync(self.device)
         t0 = time.perf_counter()
         for lefts, rights in chunks:
-            self.state = self._chunk_step(
-                self.state, lefts.to(self.device), rights.to(self.device), self.generator
-            )
+            self.state = self._chunk_step(self.state, lefts.to(self.device), rights.to(self.device))
         tail = rest[n_chunks * K:]
         if tail:
             print(

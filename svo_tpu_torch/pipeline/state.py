@@ -2,9 +2,9 @@
 
 Port of svo_tpu/pipeline/state.py. FeatureSet is the live feature table,
 MapState the preallocated map with its monotone allocation cursor and the
-COO observation ring, VoState everything a frame step needs. svo_tpu's
-VoState also carries a jax PRNG key; here the engine holds a
-torch.Generator instead, so the port's VoState has no `rng` field.
+COO observation ring, VoState everything a frame step needs, svo_tpu's
+threefry PRNG key (`rng`, ops/random.py) included: a copied state carries
+its PnP noise, as svo_tpu's does.
 
 A batched state of S streams (parallel/batched.py) is the same structure
 with a leading (S,) on every leaf, as jax.vmap makes svo_tpu's; stack and
@@ -12,7 +12,8 @@ unstack convert between S single states and one batched state.
 
 from_numpy / to_numpy convert between svo_tpu's state fetched to numpy
 (jax.tree.map(np.asarray, state)) and this one, single or batched, so both
-packages can run a step from the same state.
+packages can run a step from the same state. The key is int32 here (torch's
+uint32 has few ops) and uint32 in numpy, with the same 32 bits.
 """
 
 from __future__ import annotations
@@ -88,6 +89,7 @@ class VoState(NamedTuple):
     poses: torch.Tensor        # (F, 4, 4) trajectory (camera-to-world)
     kf_flags: torch.Tensor     # (F,) bool
     metrics: torch.Tensor      # (F, 5): n_tracked, inlier_ratio, n_final, is_kf, n_map_pts
+    rng: torch.Tensor          # (2,) i32 threefry key (uint32 bits), svo_tpu's PRNG key
 
 
 _DTYPES = {
@@ -98,8 +100,11 @@ _DTYPES = {
 
 
 def tensor(a, device=None) -> torch.Tensor:
-    """A numpy array of one of the state's dtypes (f32, i32, bool) as a tensor."""
+    """A numpy array of one of the state's dtypes (f32, i32, bool) as a
+    tensor; uint32 (the key) becomes int32 with the same bits."""
     a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
     if a.dtype not in _DTYPES:
         raise TypeError(f"unexpected state dtype {a.dtype}")
     return torch.tensor(a, dtype=_DTYPES[a.dtype], device=device)
@@ -107,8 +112,7 @@ def tensor(a, device=None) -> torch.Tensor:
 
 def from_numpy(tree, device) -> VoState:
     """svo_tpu's VoState with numpy leaves -> the port's VoState on
-    `device`. Fields are read by name; the jax `rng` key is dropped (the
-    engine's generator replaces it)."""
+    `device`. Fields are read by name; the uint32 key becomes int32 bits."""
     def t(a):
         return tensor(a, device)
 
@@ -125,8 +129,10 @@ def from_numpy(tree, device) -> VoState:
 
 
 def to_numpy(state: VoState) -> VoState:
-    """The port's VoState -> the same structure with numpy leaves."""
-    return _map_leaves(lambda x: x.detach().cpu().numpy(), state)
+    """The port's VoState -> the same structure with numpy leaves, the key
+    uint32 as svo_tpu's."""
+    out = _map_leaves(lambda x: x.detach().cpu().numpy(), state)
+    return out._replace(rng=out.rng.view(np.uint32))
 
 
 def _map_leaves(fn, *states: VoState) -> VoState:
@@ -150,7 +156,9 @@ def _map_leaves(fn, *states: VoState) -> VoState:
 
 
 def leaves(state: VoState) -> list:
-    """Every leaf of the state in a fixed order, pyramid included."""
+    """Every leaf of the state in a fixed order, pyramid included, the
+    key last: jax.tree.leaves' order for svo_tpu's state (leaves(to_numpy(
+    state)) are svo_tpu's leaves with their dtypes)."""
     out = []
     _map_leaves(out.append, state)
     return out

@@ -78,20 +78,57 @@ def table(events) -> list[dict]:
                   key=lambda r: (-r["ms"], r["name"]))
 
 
+def records(prof) -> tuple[list, list]:
+    """(device, host) rows (name, us, 1) of a finished trace, read from its
+    raw records: each device activity with its duration, each host op with
+    its self time (its duration less its children's on the same thread),
+    the times key_averages() gives, without the tree of every op that it
+    builds first (tens of seconds for a traced chunk on the card). An op
+    nested in the only call of an op of its own name counts as a call of its
+    own, where key_averages() merges the two."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+
+    device, host = [], defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if _filter_name(e.name()):
+            continue
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        if e.device_type() == DeviceType.CUDA:
+            device.append((e.name(), 0.0 if is_async else e.duration_ns() / 1e3, 1))
+        elif e.device_type() == DeviceType.CPU and not is_async:
+            host[e.start_thread_id()].append(e)
+    rows = []
+    for evs in host.values():
+        evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+        stack = []  # [end_ns, row index] of the ops open at this start
+        for e in evs:
+            while stack and stack[-1][0] <= e.start_ns():
+                stack.pop()
+            dur = e.duration_ns() / 1e3
+            if stack:
+                parent = rows[stack[-1][1]]
+                rows[stack[-1][1]] = (parent[0], parent[1] - dur, 1)
+            rows.append((e.name(), dur, 1))
+            stack.append([e.end_ns(), len(rows) - 1])
+    return device, rows
+
+
 def kernel_launches() -> dict:
     """The port's kernels' launch counters (each wrapper's `launches`)."""
     from svo_tpu_torch.ops import lk_fused
     from svo_tpu_torch.ops.klt_patches import extract_klt_patches
+    from svo_tpu_torch.ops.random import split_gumbel
 
     return {"klt_patches": extract_klt_patches.launches,
-            "lk_level": lk_fused.lk_track_level.launches + lk_fused.lk_track_pyramid.launches}
+            "lk_level": lk_fused.lk_track_level.launches + lk_fused.lk_track_pyramid.launches,
+            "threefry": split_gumbel.launches}
 
 
 def profile(args: argparse.Namespace, seq=None, frames=None) -> dict:
     """The warm, timed and traced chunks; returns the result dict. A
     sequence and its rendered frames may be given (_staging.stage)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from svo_tpu_torch._measure import device_name
@@ -122,16 +159,13 @@ def profile(args: argparse.Namespace, seq=None, frames=None) -> dict:
         _staging.sync(dev)
         traced_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: n - before[k] for k, n in kernel_launches().items()}
-    evs = prof.key_averages()
-    host = [(e.key, e.self_cpu_time_total, e.count) for e in evs
-            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    device, host = records(prof)
+    host = [r for r in table(host) if r["ms"] > 0]
     if dev.type == "cuda":
-        device = [(e.key, e.self_device_time_total, e.count) for e in evs
-                  if e.device_type == DeviceType.CUDA]
         if not device:
             raise RuntimeError("the profiler saw no device activity in the traced chunk")
     else:
-        device = host
+        device = [(r["name"], 1e3 * r["ms"], r["count"]) for r in host]
     by_name = table(device)
     by_kind = table([(kind(k), us, n) for k, us, n in device])
     device_ms = sum(r["ms"] for r in by_name)
@@ -152,7 +186,7 @@ def profile(args: argparse.Namespace, seq=None, frames=None) -> dict:
         "busy_share_untraced": device_ms / warm_ms,
         "by_name": by_name,
         "by_kind": by_kind,
-        "host_ops": table(host),
+        "host_ops": host,
     }
 
 

@@ -10,8 +10,8 @@ The counterpart of scripts/soak.py, on the port's StereoVO. It exercises
 what the capacity sizing (config.py Capacity, BaParams.ring_obs) encodes
 and short runs never reach: the observation ring wrapping under the running
 pipeline and window extraction over the wrapped ring, point-table headroom,
-trajectory-slot use; and a checkpoint taken at the middle chunk (with the
-PnP generator's state) and restored into a fresh engine, whose
+trajectory-slot use; and a checkpoint taken at the middle chunk (the PnP
+key is part of the state) and restored into a fresh engine, whose
 continuation must equal the uninterrupted run.
 
 Frames are rendered one chunk at a time in threads (2,401 frames at
@@ -144,7 +144,7 @@ def soak(args: argparse.Namespace):
     def step(eng, c, ls, rs):
         """One chunk, then the refinement where it is due; the verdict or
         None."""
-        eng.state = eng._chunk_step(eng.state, ls.to(eng.device), rs.to(eng.device), eng.generator)
+        eng.state = eng._chunk_step(eng.state, ls.to(eng.device), rs.to(eng.device))
         if refiner is not None and (c + 1) % args.refine_every == 0:
             eng.state, acc = refiner(eng.state)
             return acc
@@ -174,7 +174,7 @@ def soak(args: argparse.Namespace):
             rerun[c] = (ls, rs)
         t0 = time.perf_counter()
         if c == ckpt_at:
-            checkpoint.save_state(ckpt_path, vo.state, vo.generator)
+            checkpoint.save_state(ckpt_path, vo.state)
         acc = step(vo, c, ls, rs)
         if acc is not None:
             verdicts.append(acc)
@@ -227,7 +227,7 @@ def soak(args: argparse.Namespace):
     # a few chunks re-run; the trajectory must equal the uninterrupted run's
     vo2 = engine()
     vo2.start(l0, r0)
-    vo2.state = checkpoint.load_state(ckpt_path, vo2.state, vo2.generator)
+    vo2.state = checkpoint.load_state(ckpt_path, vo2.state)
     tmp.cleanup()
     for c in range(ckpt_at, ckpt_at + r_chunks):
         step(vo2, c, *rerun.pop(c))

@@ -7,7 +7,7 @@
 The counterpart of scripts/time_chunk.py. S streams (even forward, odd
 reversed) are staged on the device in chunks (_staging.py); the engine is
 warmed with a bootstrap and one chunk. Each rep restarts it with
-BatchedStereoVO.start (which reseeds its generator, so every rep draws
+BatchedStereoVO.start (which keys the state anew, so every rep draws
 the same PnP noise and gives the same trajectories bit for bit) and times
 the whole run, synchronised at both ends. It prints the best rep's time,
 the aggregate frames/s and every stream's ATE. svo_tpu's script compares a

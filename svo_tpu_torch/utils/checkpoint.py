@@ -1,40 +1,31 @@
 """Checkpoint / resume for the VO pipeline state.
 
-Port of svo_tpu/utils/checkpoint.py: the whole VoState (features, map,
-observation ring, pyramid, trajectory) goes into one .npz, so a run can
-resume mid-sequence with identical downstream behaviour. svo_tpu's state
-carries its RNG key; the port's PnP noise comes from the engine's
-torch.Generator, which lives outside the state, so the checkpoint stores
-the generator's state too: without it a resumed run draws other noise and
-is no longer the run it was taken from.
+Port of svo_tpu/utils/checkpoint.py, with its signatures: the whole VoState
+(features, map, observation ring, pyramid, trajectory, PnP key) goes into
+one .npz, so a run can resume mid-sequence with identical downstream
+behaviour. The leaves are svo_tpu's, in jax.tree.leaves' order and with
+its dtypes (the key as uint32), so either package resumes the other's
+checkpoint.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from svo_tpu_torch.pipeline.state import VoState, leaves, tensor, unflatten
-
-_GENERATOR = "generator_state"
+from svo_tpu_torch.pipeline.state import VoState, leaves, tensor, to_numpy, unflatten
 
 
-def save_state(path: str, state: VoState, generator: torch.Generator | None = None) -> None:
-    """Serialise a VoState (single or batched) to an .npz archive, with the
-    state of `generator` if one is given."""
-    arrays = {f"leaf_{i}": x.detach().cpu().numpy() for i, x in enumerate(leaves(state))}
-    if generator is not None:
-        arrays[_GENERATOR] = generator.get_state().numpy()
+def save_state(path: str, state: VoState) -> None:
+    """Serialise a VoState (single or batched) to an .npz archive."""
+    arrays = {f"leaf_{i}": x for i, x in enumerate(leaves(to_numpy(state)))}
     np.savez_compressed(path, **arrays)
 
 
-def load_state(
-    path: str, example_state: VoState, generator: torch.Generator | None = None
-) -> VoState:
-    """Restore a VoState saved by save_state onto the device of
-    `example_state`, which supplies the structure and the expected shapes
-    (build it with the same Config, e.g. by a bootstrap). If `generator` is
-    given it is set to the state the checkpoint holds."""
+def load_state(path: str, example_state: VoState) -> VoState:
+    """Restore a VoState saved by save_state (this package's or svo_tpu's)
+    onto the device of `example_state`, which supplies the structure and
+    the expected shapes (build it with the same Config, e.g. by a
+    bootstrap)."""
     with np.load(path) as data:
         restored = []
         for i, ex in enumerate(leaves(example_state)):
@@ -45,8 +36,4 @@ def load_state(
                     "was the Config (capacities/image size) changed?"
                 )
             restored.append(tensor(arr, ex.device).to(ex.dtype))
-        if generator is not None:
-            if _GENERATOR not in data:
-                raise ValueError(f"checkpoint {path} holds no generator state")
-            generator.set_state(torch.from_numpy(data[_GENERATOR]))
     return unflatten(restored, example_state)

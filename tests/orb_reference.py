@@ -85,7 +85,7 @@ def port_numbers(seq, frames) -> None:
     torch.set_num_threads(4)
     cam = tcam.from_intrinsics(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], seq.baseline)
     cfg = Config(image_height=376, image_width=1241)
-    draw = frontend.gumbel_noise
+    draw = frontend.split_gumbel
     for name, fr, gt in (("forward", frames, seq.gt_poses),
                          ("reversed", frames[::-1], seq.gt_poses[::-1])):
         key, noises = jax.random.PRNGKey(0), []
@@ -94,11 +94,11 @@ def port_numbers(seq, frames) -> None:
             noises.append(torch.from_numpy(np.array(jax.random.gumbel(
                 sub, (cfg.ransac.num_hypotheses, cfg.capacity.max_features)))))
         it = iter(noises)
-        frontend.gumbel_noise = lambda *a, **k: next(it)
+        frontend.split_gumbel = lambda keys, shape: (draw(keys, shape)[0], next(it))
         try:
             res = StereoVO(cfg, cam, chunk=12, kf_cadence=6, device="cpu").run_chunked(fr)
         finally:
-            frontend.gumbel_noise = draw
+            frontend.split_gumbel = draw
         print(f"port ORB on the CPU, svo_tpu's PnP noise, {name}: ATE "
               f"{ate_rmse(res.poses, gt):.4f} m", flush=True)
     for name, fr, gt in (("forward", frames, seq.gt_poses),

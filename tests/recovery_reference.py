@@ -76,7 +76,6 @@ def replay_noise(noise: np.ndarray):
     body = frontend.step_body
 
     def step_body(state, *a, **k):
-        k.pop("generator", None)
         k["pnp_noise"] = torch.from_numpy(noise[int(state.frame_id)]).to(state.pose.device)
         return body(state, *a, **k)
 

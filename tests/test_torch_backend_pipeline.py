@@ -17,8 +17,9 @@
     the port: the same keyframes, the port's BA solves at the frames the
     rule gives from kf_flags, poses within 1e-4 up to the first solve and
     1e-3 after it, ATE under 5% of
-    the distance travelled. And StereoVO.run with ba.enabled on its own
-    generator, held to that ATE bound.
+    the distance travelled; the two states' PnP keys bit-equal (svo_tpu's
+    key chain, split once a step). And StereoVO.run with ba.enabled
+    drawing from its own key, held to that ATE bound.
 """
 
 import jax
@@ -40,6 +41,7 @@ from svo_tpu.pipeline.state import VoState as JVoState
 from svo_tpu_torch.config import BaParams as TBaParams
 from svo_tpu_torch.config import Config as TConfig
 from svo_tpu_torch.geometry import camera as tcam
+from svo_tpu_torch.ops.random import gumbel, prng_key
 from svo_tpu_torch.parallel.batched import BatchedStereoVO as TBatched
 from svo_tpu_torch.pipeline import frontend as tfront
 from svo_tpu_torch.pipeline import state as tstate
@@ -56,16 +58,15 @@ def _u8(x):
 
 
 def _jax_state(tree) -> JVoState:
-    """svo_tpu's VoState from the port's state as numpy leaves."""
+    """svo_tpu's VoState from the port's state as numpy leaves (its PnP
+    keys included)."""
     levels, grads = tree.prev_pyramid
-    lead = tree.frame_id.shape
     return JVoState(
         features=JFeatureSet(*(jnp.asarray(x) for x in tree.features)),
         map=JMapState(*(jnp.asarray(x) for x in tree.map)),
         prev_pyramid=(tuple(jnp.asarray(l) for l in levels),
                       tuple((jnp.asarray(gx), jnp.asarray(gy)) for gx, gy in grads)),
         **{f: jnp.asarray(getattr(tree, f)) for f in tstate.VoState._fields[3:]},
-        rng=jnp.zeros(lead + (2,), jnp.uint32),
     )
 
 
@@ -169,7 +170,7 @@ def ba_runs(ba_seq):
     st_j = jfront.make_bootstrap(cam_j, cfg_j)(
         jnp.asarray(frames[0][1]), jnp.asarray(frames[0][2]), jnp.uint32(0))
     st_t = tfront.make_bootstrap(cam_t, cfg_t)(
-        torch.from_numpy(frames[0][1]), torch.from_numpy(frames[0][2]))
+        torch.from_numpy(frames[0][1]), torch.from_numpy(frames[0][2]), 0)
     shape = (cfg_j.ransac.num_hypotheses, cfg_j.capacity.max_features)
     solved = []
     window_ba = tfront._window_ba
@@ -193,6 +194,7 @@ def ba_runs(ba_seq):
 def test_pipeline_with_ba_matches_svo_tpu(ba_seq, ba_runs):
     j, t = ba_runs["j"], ba_runs["t"]
     n = 14
+    np.testing.assert_array_equal(t.rng, j.rng)
     assert np.array_equal(t.kf_flags[:n], j.kf_flags[:n])
     # the rule of the frontend, from the keyframe flags
     count = np.cumsum(t.kf_flags[:n])
@@ -228,11 +230,10 @@ def test_batched_ba_selects_per_stream(ba_seq):
     frames = list(ba_seq)[:4]
     cfg, cam = _ba_setup(ba_seq, TConfig, TBaParams, tcam)
     cfg_off, _ = _ba_setup(ba_seq, TConfig, lambda **kw: TBaParams(**{**kw, "enabled": False}), tcam)
-    gen = torch.Generator().manual_seed(0)
     img = lambda a: torch.from_numpy(np.stack([a, a]))  # noqa: E731
-    st = tfront.make_bootstrap(cam, cfg)(img(frames[0][1]), img(frames[0][2]))
-    noise = [tfront.gumbel_noise((2, cfg.ransac.num_hypotheses, cfg.capacity.max_features), gen, "cpu")
-             for _ in range(3)]
+    st = tfront.make_bootstrap(cam, cfg)(img(frames[0][1]), img(frames[0][2]), [0, 1])
+    noise = [gumbel(prng_key([2 * i, 2 * i + 1]),
+                    (cfg.ransac.num_hypotheses, cfg.capacity.max_features)) for i in range(3)]
     # two track-only steps, then a keyframe step with stream 1's keyframe
     # count pushed to an odd value under interval 2: only stream 0 is due
     for i in (1, 2):

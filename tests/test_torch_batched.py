@@ -12,15 +12,15 @@ batched engine is jitted and run ONCE for the whole file (fixture `svo`).
     and the final feature table slot for slot: masks, ids and ages
     identical, positions within 1e-3 px (the bounds of
     test_torch_pipeline.py, per stream).
-(b) The whole run through BatchedStereoVO's own generators (the noise
-    differs: threefry against torch's generator): trajectories within 10 cm
-    and 1 degree.
+(b) The whole run through both BatchedStereoVOs, each drawing its own
+    noise from the keys in its state (stream s keyed by PRNGKey(seed + s)
+    in both): the final keys bit-equal, trajectories within 10 cm and 1
+    degree.
 (c) Stream s of a batched run against the port's single-stream frame
-    steps given row s of the batched run's noise (one generator draws
-    (S, hypotheses, N) per step): poses within 1e-4 (sums over (S, N, ...)
-    may add in another order than over (N, ...)), each engine, on the
-    cadenced path and on the dynamic per-frame path; a dynamic step in
-    which only one stream keyframes.
+    steps from PRNGKey(seed + s) (StereoVO(seed=seed+s)): keys bit-equal,
+    poses within 1e-4 (sums over (S, N, ...) may add in another order than
+    over (N, ...)), each engine, on the cadenced path and on the dynamic
+    per-frame path; a dynamic step in which only one stream keyframes.
 (d) The ValueErrors of the shape checks and of chunk % kf_cadence, the
     refiner's defaults and its call before start(), and the device default.
 """
@@ -37,7 +37,6 @@ from svo_tpu.io.synthetic import SyntheticSequence
 from svo_tpu.parallel.batched import BatchedStereoVO as JBatched
 from svo_tpu_torch.config import Config as TConfig
 from svo_tpu_torch.geometry import camera as tcam
-from svo_tpu_torch.geometry import pnp as tpnp
 from svo_tpu_torch.parallel.batched import BatchedStereoVO as TBatched
 from svo_tpu_torch.pipeline import frontend as tfront
 from svo_tpu_torch.pipeline import state as tstate
@@ -104,7 +103,9 @@ def test_from_numpy_carries_the_batched_state(svo):
     assert tuple(st.pose.shape) == (S, 4, 4) and tuple(st.frame_id.shape) == (S,)
     assert tuple(st.features.pos.shape)[:1] == (S,) and st.prev_pyramid[0][0].dim() == 3
     back = tstate.to_numpy(st)
-    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(boot._replace(rng=None))):
+    assert len(jax.tree.leaves(back)) == len(jax.tree.leaves(boot))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(boot)):
+        assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
     # stack / unstack between S single states and one batched state
     singles = tstate.unstack(st)
@@ -158,11 +159,15 @@ def port_runs(data):
         bvo.start(data["l0"], data["r0"])
         bvo.process_chunk(data["lefts"], data["rights"])
         out[engine] = bvo.trajectories(F)
+        out[engine + "_rng"] = bvo.state.rng
     return out
 
 
 def test_batched_run_matches_svo_tpu(svo, port_runs):
-    """The noise differs, so the bound is that of two engines on one run."""
+    """The same keys, so the same noise; the bound is still that of two
+    engines on one run."""
+    np.testing.assert_array_equal(port_runs["patches_rng"].numpy().view(np.uint32),
+                                  svo["final"].rng)
     got, want = port_runs["patches"], svo["traj"]
     assert got.shape == want.shape == (S, F, 4, 4) and np.isfinite(got).all()
     dt = np.linalg.norm(got[:, :, :3, 3] - want[:, :, :3, 3], axis=-1)
@@ -173,18 +178,15 @@ def test_batched_run_matches_svo_tpu(svo, port_runs):
 
 
 def _single_stream_drive(data, s, seed, kf_modes, engine="patches"):
-    """Stream s alone through the frame steps, with row s of the noise a
-    BatchedStereoVO seeded `seed` draws: one (S, hypotheses, N) draw per step."""
+    """Stream s alone through the frame steps, keyed PRNGKey(seed + s) as
+    a BatchedStereoVO started with `seed` keys its stream s."""
     cfg, cam = TConfig(**KW), _tcam(data)
-    gen = torch.Generator().manual_seed(seed)
-    shape = (S, cfg.ransac.num_hypotheses, cfg.capacity.max_features)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
-    st = tfront.make_bootstrap(cam, cfg, engine)(f32(data["l0"][s]), f32(data["r0"][s]))
+    st = tfront.make_bootstrap(cam, cfg, engine)(f32(data["l0"][s]), f32(data["r0"][s]), seed + s)
     for t, mode in enumerate(kf_modes, start=1):
         _, left, right = data["frames"][s][t]
         st = tfront.step_body(
-            st, f32(_u8(left)), f32(_u8(right)), cam, cfg, kf_mode=mode,
-            pnp_noise=tpnp.gumbel_noise(shape, gen, "cpu")[s], lk_engine=engine,
+            st, f32(_u8(left)), f32(_u8(right)), cam, cfg, kf_mode=mode, lk_engine=engine,
         )
     return st
 
@@ -195,6 +197,7 @@ def test_stream_equals_single_stream_run(data, port_runs, engine, s):
     """Stream s of the batched run against stream s alone on the same noise."""
     modes = ["always" if i % CADENCE == 0 else "never" for i in range(CHUNK)]
     st = _single_stream_drive(data, s, 0, modes, engine)
+    assert torch.equal(port_runs[engine + "_rng"][s], st.rng)
     np.testing.assert_allclose(port_runs[engine][s], st.poses[:F].numpy(), rtol=0, atol=1e-4)
 
 
@@ -209,6 +212,7 @@ def test_process_dynamic_rule_equals_single_stream(data):
     trajs = bvo.trajectories(F)
     for s in range(S):
         st = _single_stream_drive(data, s, 5, ["dynamic"] * (F - 1))
+        assert torch.equal(bvo.state.rng[s], st.rng)
         np.testing.assert_allclose(trajs[s], st.poses[:F].numpy(), rtol=0, atol=1e-4)
         np.testing.assert_array_equal(bvo.state.kf_flags[s, :F].numpy(), st.kf_flags[:F].numpy())
 
@@ -218,7 +222,7 @@ def test_dynamic_step_where_one_stream_keyframes(data):
     cfg, cam = TConfig(**KW), _tcam(data)
     boot = tfront.make_bootstrap(cam, cfg)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
-    singles = [boot(f32(data["l0"][s]), f32(data["r0"][s])) for s in range(S)]
+    singles = [boot(f32(data["l0"][s]), f32(data["r0"][s]), s) for s in range(S)]
     # stream 1 is due by the interval rule; stream 0 has just keyframed
     singles[1] = singles[1]._replace(
         prev_is_kf=torch.zeros((), dtype=torch.bool),
@@ -265,7 +269,7 @@ def test_shape_and_cadence_errors(data):
     step = tfront.make_cadenced_chunk_step(cam, cfg, CHUNK, CADENCE)
     with pytest.raises(ValueError, match="streams"):  # a single stream's chunk
         step(bvo.state, torch.zeros((CHUNK,) + SHAPE, dtype=torch.uint8),
-             torch.zeros((CHUNK,) + SHAPE, dtype=torch.uint8), bvo.generator)
+             torch.zeros((CHUNK,) + SHAPE, dtype=torch.uint8))
 
 
 def test_back_end_and_the_sharded_refiner(data):

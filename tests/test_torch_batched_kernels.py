@@ -30,7 +30,8 @@ from svo_tpu.ops.klt_pallas import extract_klt_patches as jax_extract
 from svo_tpu.ops.lk_pallas import lk_track_level as j_level
 from svo_tpu_torch import probe
 from svo_tpu_torch.config import Config
-from svo_tpu_torch.geometry.pnp import gumbel_noise, ransac_pnp
+from svo_tpu_torch.geometry.pnp import ransac_pnp
+from svo_tpu_torch.ops.random import gumbel, prng_key
 from svo_tpu_torch.ops import index
 from svo_tpu_torch.ops.detect import detect
 from svo_tpu_torch.ops.klt import KltTracker as TKlt
@@ -306,7 +307,7 @@ def test_ransac_pnp_batched_equals_loop():
     uv, T_prior = _t(np.stack(uv)), _t(np.stack(T_prior))
     Xw = _t(Xw)
     valid = _t(rng.random((S, N)) > 0.1)
-    noise = gumbel_noise((S, hyp, N), torch.Generator().manual_seed(10), "cpu")
+    noise = gumbel(prng_key(np.arange(S) + 10), (hyp, N))
     assert tuple(noise.shape) == (S, hyp, N)
     assert not torch.equal(noise[0], noise[1])  # each stream its own row
 

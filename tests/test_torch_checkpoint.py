@@ -3,10 +3,12 @@
 A batched engine (S=2, 96x256, chunks of 6 frames, refine() in the loop)
 is saved after two chunks and a sweep and loaded into a FRESH engine; both
 then run a chunk, a sweep and another chunk: every leaf of the two states
-must be bit-equal, which needs the generator's state in the checkpoint
-(a resume without it draws other PnP noise) and a deterministic refine().
-A single-stream engine round-trips too. A checkpoint of another Config
-raises svo_tpu's message, word for word.
+must be bit-equal, which needs the PnP key in the checkpoint (it is a leaf
+of the state, as in svo_tpu; a state with another key draws other PnP
+noise and diverges) and a deterministic refine(). A single-stream engine
+round-trips too. A checkpoint of another Config raises svo_tpu's message,
+word for word. (tests/test_torch_rng.py resumes each package's checkpoint
+in the other.)
 """
 
 import jax  # noqa: F401  (before torch)
@@ -72,7 +74,7 @@ def saved(data, tmp_path_factory):
     bvo.process_chunk(*data["chunks"][1])
     bvo.refine()
     at_save = bvo.state
-    save_state(path, bvo.state, bvo.generator)
+    save_state(path, bvo.state)
     _tail(bvo, data)
     return dict(path=path, at_save=at_save, final=bvo.state)
 
@@ -87,7 +89,7 @@ def _tail(bvo, data):
 def test_resume_in_a_fresh_engine_is_bit_equal(data, saved):
     fresh = _engine(data)
     fresh.start(*data["first"], seed=99)            # supplies the structure; another seed
-    fresh.state = load_state(saved["path"], fresh.state, fresh.generator)
+    fresh.state = load_state(saved["path"], fresh.state)
     _same_state(fresh.state, saved["at_save"])
     verdicts = _tail(fresh, data)
     assert verdicts.shape == (S,)
@@ -95,13 +97,16 @@ def test_resume_in_a_fresh_engine_is_bit_equal(data, saved):
     assert int(fresh.state.frame_id[0]) == 4 * CHUNK
 
 
-def test_resume_without_the_generator_state_diverges(data, saved):
-    """The PnP noise is part of the run: a resume that restores the state
-    alone is a valid run, but not the one the checkpoint was taken from."""
+def test_resume_with_another_key_diverges(data, saved):
+    """The PnP noise is part of the run: a resume whose state carries
+    another key (the fresh engine's, seed 99) is a valid run, but not the
+    one the checkpoint was taken from."""
     fresh = _engine(data)
     fresh.start(*data["first"], seed=99)
-    fresh.state = load_state(saved["path"], fresh.state)
-    _same_state(fresh.state, saved["at_save"])
+    other_key = fresh.state.rng
+    fresh.state = load_state(saved["path"], fresh.state)._replace(rng=other_key)
+    assert not torch.equal(other_key, saved["at_save"].rng)
+    _same_state(fresh.state._replace(rng=saved["at_save"].rng), saved["at_save"])
     _tail(fresh, data)
     assert not torch.equal(fresh.state.poses, saved["final"].poses)
     assert bool(torch.isfinite(fresh.state.poses).all())
@@ -115,17 +120,18 @@ def test_single_stream_round_trip(data, tmp_path):
     for _, l, r in frames[1:4]:
         vo.process(l, r)
     path = str(tmp_path / "single.npz")
-    save_state(path, vo.state, vo.generator)
+    save_state(path, vo.state)
+    with np.load(path) as z:  # the key is the last leaf, uint32 as svo_tpu writes it
+        key = z[f"leaf_{len(z.files) - 1}"]
+    assert key.dtype == np.uint32
+    np.testing.assert_array_equal(key, vo.state.rng.numpy().view(np.uint32))
     other = StereoVO(Config(**KW), cam, seed=8, device="cpu")
     other.start(*frames[0][1:])
-    other.state = load_state(path, other.state, other.generator)
+    other.state = load_state(path, other.state)
     for _, l, r in frames[4:7]:
         vo.process(l, r)
         other.process(l, r)
     _same_state(vo.state, other.state)
-    save_state(path, vo.state)
-    with pytest.raises(ValueError, match="no generator state"):
-        load_state(path, other.state, other.generator)
 
 
 def test_wrong_shape_raises_svo_tpus_message(data, saved, tmp_path):

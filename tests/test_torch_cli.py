@@ -11,9 +11,10 @@ configs/kitti00.yaml (PyYAML is installed here) and runs the dynamic
 chunked step with --refine.
 
 StereoVO(chunk=12, kf_cadence=0) runs frontend.make_chunked_step: 13
-frames at 96x256 beside svo_tpu's jitted lax.scan of the same rule, with
-svo_tpu's PnP noise handed to the port frame by frame (jax.random's split
-chain from the same seed): keyframe flags identical, trajectories within
+frames at 96x256 beside svo_tpu's jitted lax.scan of the same rule, both
+drawing svo_tpu's PnP noise from the key in their state (jax.random's split
+chain from the same seed; the final keys bit-equal): keyframe flags
+identical, trajectories within
 the 10 cm and 1 degree of tests/test_torch_pipeline.py (read:
 2.3e-6 m). A chunk that is not a multiple of the cadence raises, as
 svo_tpu refuses it.
@@ -36,7 +37,6 @@ from svo_tpu_torch.config import Config as TConfig
 from svo_tpu_torch.eval.trajectory import ate_rmse
 from svo_tpu_torch.geometry import camera as tcam
 from svo_tpu_torch.io import euroc, kitti
-from svo_tpu_torch.pipeline import frontend as tfront
 from svo_tpu_torch.pipeline.odometry import StereoVO as TStereoVO
 
 torch.set_num_threads(2)
@@ -135,7 +135,7 @@ def test_entry_points_need_a_card_unless_asked():
             cli.main(argv)
 
 
-def test_dynamic_chunked_step_matches_svo_tpu(monkeypatch):
+def test_dynamic_chunked_step_matches_svo_tpu():
     H, W = 96, 256
     seq = SyntheticSequence(n_frames=13, shape=(H, W), fx=120.0, speed=0.12, seed=3)
     frames = list(seq)
@@ -144,17 +144,14 @@ def test_dynamic_chunked_step_matches_svo_tpu(monkeypatch):
     cfg_j, cfg_t = JConfig(**kw), TConfig(**kw)
     rj = JStereoVO(cfg_j, jcam.from_intrinsics(*args), seed=0, chunk=12).run_chunked(frames)
 
-    # svo_tpu's noise: each step splits the state's key (frontend.py:317)
-    key, noises = jax.random.PRNGKey(0), []
+    # svo_tpu's noise: each step splits the state's key (frontend.py:317),
+    # and so does the port's
+    key = jax.random.PRNGKey(0)
     for _ in frames[1:]:
-        key, sub = jax.random.split(key)
-        noises.append(torch.from_numpy(np.array(jax.random.gumbel(
-            sub, (cfg_j.ransac.num_hypotheses, cfg_j.capacity.max_features)))))
-    drawn = iter(noises)
-    monkeypatch.setattr(tfront, "gumbel_noise", lambda *a, **k: next(drawn))
+        key, _ = jax.random.split(key)
     vo = TStereoVO(cfg_t, tcam.from_intrinsics(*args), chunk=12, kf_cadence=0, device="cpu")
     rt = vo.run_chunked(frames)
-    assert next(drawn, None) is None  # one draw a frame, all used
+    np.testing.assert_array_equal(vo.state.rng.numpy().view(np.uint32), np.asarray(key))
 
     np.testing.assert_array_equal(rt.kf_flags, rj.kf_flags)
     assert 1 < rt.kf_flags.sum() < 13  # the rule decided, not a cadence

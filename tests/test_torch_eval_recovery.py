@@ -17,7 +17,7 @@ noise replay). Held:
 - the whole recovery with shared noise: the flags identical and every
   number within 1e-3 m (under the conditioned log below);
 - with the sweep skipped and no back-end in arm B, arm B equals arm A bit
-  for bit (the engine's generator is restored before each arm).
+  for bit (both start from copies of one state, whose PnP key they share).
 
 The sweep runs twice: with each package's own se3.log, and with one
 well-conditioned log in both (conditioned_log).
@@ -48,6 +48,7 @@ from recovery_reference import SvoTpuRecovery, replay_noise, svo_tpu_noise  # no
 from svo_tpu.geometry import se3 as jse3  # noqa: E402
 from svo_tpu_torch import eval_recovery  # noqa: E402
 from svo_tpu_torch.geometry import se3 as tse3  # noqa: E402
+from svo_tpu_torch.ops.random import prng_key  # noqa: E402
 from svo_tpu_torch.parallel.global_opt import refine_global  # noqa: E402
 from svo_tpu_torch.pipeline.state import from_numpy, leaves  # noqa: E402
 
@@ -184,6 +185,7 @@ def test_recovery_matches_svo_tpu_with_shared_noise(run):
     their own logs the back-end's two numbers differ by 4.2e-3 and 4.7e-3 m
     at this size, tests/recovery_reference.py --small)."""
     vo = _port(run)
+    key_at_branch = eval_recovery._key(vo.state)  # svo_tpu's key, carried by from_numpy
     noise = svo_tpu_noise(run.args.frames - 1)
     with _log("conditioned_log", run) as tol:
         want, _, _ = SvoTpuRecovery(run.args, run.seq).recover_from(
@@ -196,7 +198,8 @@ def test_recovery_matches_svo_tpu_with_shared_noise(run):
         else:
             assert abs(got[k] - v) <= tol, (k, got[k], v)
     assert want["aggressive_fired"] and want["accepted"]
-    assert got["arm_generator_states"][0] == got["arm_generator_states"][1]
+    assert got["arm_rng_keys"][0] == got["arm_rng_keys"][1]
+    assert got["arm_rng_keys"][0] == key_at_branch
     n = 1 + ((run.args.frames - 1) // 12) * 12
     assert arms["a"].shape == arms["b"].shape == (n, 4, 4)
     assert got["steps"]["frames"] == 24 + 2 * 24
@@ -204,9 +207,9 @@ def test_recovery_matches_svo_tpu_with_shared_noise(run):
 
 def test_arms_are_equal_with_the_sweep_skipped(run):
     """No sweep and no back-end in arm B: the arms differ only if their noise
-    does. The engine's generator (not svo_tpu's noise) draws it here."""
+    does. The state's key is replaced by PRNGKey(3) (not svo_tpu's noise)."""
     vo = _port(run)
-    vo.generator.manual_seed(3)
+    vo.state = vo.state._replace(rng=prng_key(3))
     got, arms = eval_recovery.recover_from(vo, run.ls, run.rs, run.gt, run.args, backend=False)
     assert not got["backend_in_arm_b"]
     np.testing.assert_array_equal(arms["a"], arms["b"])

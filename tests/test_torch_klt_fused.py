@@ -281,7 +281,7 @@ def test_fused_cadenced_steps_with_svo_tpu_noise(svo):
     seq, cam, cfg = _pipe()
     frames = list(seq)
     st = tfront.make_bootstrap(cam, cfg, "fused")(
-        torch.from_numpy(frames[0][1]), torch.from_numpy(frames[0][2])
+        torch.from_numpy(frames[0][1]), torch.from_numpy(frames[0][2]), 0
     )
     for i, (_, left, right) in enumerate(frames[1:]):
         l8, r8 = (torch.from_numpy(np.clip(a, 0, 255).astype(np.uint8)) for a in (left, right))

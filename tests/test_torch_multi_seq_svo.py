@@ -3,10 +3,10 @@
 svo_tpu's MultiStereoVO(n_streams=2) runs on 2 XLA CPU devices of this
 process (tests/conftest.py gives 8), the port's MultiStereoVO(n_streams=2)
 on the CPU in a gloo world of one, over test_multi_seq.py's sequences
-(184x320, 6 frames, PnP seed 3). svo_tpu keys stream s with seed + s and
-splits the key once a frame; each of the port's streams replays that
-stream's noise (recovery_reference.svo_tpu_noise(seed + s)) by the frame
-it steps to, so both packages draw the same hypotheses. At this size the
+(184x320, 6 frames, PnP seed 3). Both packages key stream s with seed + s
+and split the key in the state once a frame, so they draw the same
+hypotheses with no noise handed in (every stream's key bit-equal at the
+end). At this size the
 consensus pose hardly depends on the hypotheses drawn (the trajectories
 read 8.6e-7 apart, and the same with the streams' noise swapped), so what
 the comparison holds is chiefly the stream order: the two streams move
@@ -22,10 +22,6 @@ in stream order, bit for bit, and the two packages' fleet_health agree
 within the rows' bound.
 """
 
-import contextlib
-import os
-import sys
-
 import jax
 import numpy as np
 import torch
@@ -37,34 +33,12 @@ from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry import camera as tcam
 from svo_tpu_torch.io.synthetic import SyntheticSequence
 from svo_tpu_torch.parallel.multi_seq import MultiStereoVO
-from svo_tpu_torch.pipeline import frontend
 from torch_dist import world_of_one
-
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from recovery_reference import svo_tpu_noise  # noqa: E402
 
 torch.set_num_threads(2)
 
 S, F, SEED = 2, 6, 3
 SHAPE = (184, 320)
-
-
-@contextlib.contextmanager
-def replay_per_stream(noise_of: dict):
-    """Each frame step takes its PnP noise from the array of the stream
-    whose generator it was handed, by the frame it steps to."""
-    body = frontend.step_body
-
-    def step_body(state, *a, **k):
-        noise = noise_of[id(k.pop("generator"))]
-        k["pnp_noise"] = torch.from_numpy(noise[int(state.frame_id)])
-        return body(state, *a, **k)
-
-    frontend.step_body = step_body
-    try:
-        yield
-    finally:
-        frontend.step_body = body
 
 
 def _stack(frames, t, k):
@@ -87,22 +61,23 @@ def test_two_streams_match_svo_tpus_multi_stereo_vo():
         metrics, fid = np.asarray(jmulti.state.metrics), np.asarray(jmulti.state.frame_id)
         j_rows.append(np.stack([metrics[s, fid[s]] for s in range(S)]))
     j_trajs = jmulti.trajectories(F)
+    j_keys = np.asarray(jmulti.state.rng)
 
     cfg = Config(use_orb=False, image_height=SHAPE[0], image_width=SHAPE[1])
     with world_of_one():
         multi = MultiStereoVO(cfg, tcam.from_intrinsics(*intr), n_streams=S,
                               devices=["cpu"] * S, device="cpu")
-        noise_of = {id(vo.generator): svo_tpu_noise(F - 1, seed=SEED + s)
-                    for s, vo in enumerate(multi.streams)}
-        with replay_per_stream(noise_of):
-            multi.start(_stack(frames, 0, 1), _stack(frames, 0, 2), seed=SEED)
-            t_health, t_rows = [], []
-            for t in range(1, F):
-                multi.process(_stack(frames, t, 1), _stack(frames, t, 2))
-                t_health.append(multi.fleet_health)
-                t_rows.append(np.stack([vo.state.metrics[int(vo.state.frame_id)].numpy()
-                                        for vo in multi.streams]))
-            t_trajs = multi.trajectories(F)
+        multi.start(_stack(frames, 0, 1), _stack(frames, 0, 2), seed=SEED)
+        t_health, t_rows = [], []
+        for t in range(1, F):
+            multi.process(_stack(frames, t, 1), _stack(frames, t, 2))
+            t_health.append(multi.fleet_health)
+            t_rows.append(np.stack([vo.state.metrics[int(vo.state.frame_id)].numpy()
+                                    for vo in multi.streams]))
+        t_trajs = multi.trajectories(F)
+        t_keys = np.stack([vo.state.rng.numpy().view(np.uint32) for vo in multi.streams])
+
+    np.testing.assert_array_equal(t_keys, np.asarray(j_keys))
 
     assert j_trajs.shape == t_trajs.shape == (S, F, 4, 4)
     for s in range(S):

@@ -21,6 +21,7 @@ from svo_tpu.geometry import pnp as jpnp
 from svo_tpu.geometry import se3 as jse3
 from svo_tpu_torch.config import RansacParams as TRansac
 from svo_tpu_torch.geometry import pnp as tpnp
+from svo_tpu_torch.ops import random as trandom
 
 torch.set_num_threads(2)
 
@@ -95,8 +96,9 @@ def test_ransac_pnp_rejects_bad_noise_shape():
 
 
 def test_gumbel_noise_distribution():
-    """The engine's draw is standard Gumbel (mean = Euler's gamma, var =
-    pi^2/6), as jax.random.gumbel's; the bits differ by design."""
-    g = tpnp.gumbel_noise((400, 500), torch.Generator().manual_seed(0), "cpu").double()
+    """The frame step's draw (ops/random.gumbel, jax.random.gumbel's bits;
+    tests/test_torch_rng.py holds it to jax's) is standard Gumbel: mean =
+    Euler's gamma, var = pi^2/6."""
+    g = trandom.gumbel(trandom.prng_key(0), (400, 500)).double()
     assert abs(float(g.mean()) - 0.5772) < 0.01
     assert abs(float(g.var()) - np.pi**2 / 6) < 0.02

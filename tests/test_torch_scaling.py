@@ -115,7 +115,8 @@ def test_frontend_arms_give_the_same_trajectories(frontend_arms):
     assert [w["devices"] for w in workers[1]] == [["cpu", "cpu"]]
     assert [w["devices"] for w in workers[2]] == [["cpu"], ["cpu"]]
     # the CPU runs the kernels' plain versions: no launch
-    assert res["launches"] == {a: {"klt_patches": 0, "lk_level": 0} for a in ("1proc", "2proc")}
+    assert res["launches"] == {a: {"klt_patches": 0, "lk_level": 0, "threefry": 0}
+                               for a in ("1proc", "2proc")}
     assert all(len(w["keyframes"]) == 2 // w["nprocs"] and min(w["keyframes"]) >= 1
                for ws in workers.values() for w in ws)
 

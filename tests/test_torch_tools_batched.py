@@ -9,7 +9,7 @@ io/synthetic.py apart from the tools' own staging (_staging.py):
   the same seed and engine bit for bit, and its ATEs are ate_rmse of those
   trajectories against each stream's ground truth, exactly;
 - time_chunk --reps 2 --lk-engine both: the two reps of each engine are
-  bit-equal (start() reseeds the generator), and each engine's
+  bit-equal (start() keys the state anew), and each engine's
   trajectories are that engine's direct drive, bit for bit;
 - the staging: every chunk holds frame t of stream s (forward for even s,
   reversed for odd) clipped and cast to uint8, frame-major, and the first

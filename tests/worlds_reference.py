@@ -135,10 +135,10 @@ def run_port(seq, frames, gt, device, engine, seed=0, noise=None):
     H, W = frames[0][0].shape
     vo = StereoVO(Config(use_orb=False, image_height=H, image_width=W), cam, seed=seed,
                   chunk=CHUNK, kf_cadence=CADENCE, device=device, lk_engine=engine)
-    draw = frontend.gumbel_noise
-    if noise is not None:
+    draw = frontend.split_gumbel
+    if noise is not None:  # the step's own key moves on; its noise is replaced
         it = (torch.from_numpy(x).to(vo.device) for x in noise)
-        frontend.gumbel_noise = lambda *a, **k: next(it)
+        frontend.split_gumbel = lambda keys, shape: (draw(keys, shape)[0], next(it))
     try:
         vo.start(frames[0][0].astype(np.float32), frames[0][1].astype(np.float32))
         bfx = vo.camera.K[0, 0] * vo.camera.baseline
@@ -147,7 +147,7 @@ def run_port(seq, frames, gt, device, engine, seed=0, noise=None):
             part = frames[1 + c * CHUNK:1 + (c + 1) * CHUNK]
             ls, rs = (torch.from_numpy(np.stack([p[k] for p in part])).to(vo.device)
                       for k in (0, 1))
-            vo.state = vo._chunk_step(vo.state, ls, rs, vo.generator)
+            vo.state = vo._chunk_step(vo.state, ls, rs)
             if (c + 1) % REFINE_EVERY == 0:
                 st = vo.state
                 res = refine_global(st.map, st.poses, st.frame_id, vo.camera.K, bfx)
@@ -157,7 +157,7 @@ def run_port(seq, frames, gt, device, engine, seed=0, noise=None):
         if noise is not None:
             assert next(it, None) is None, "the noise was not drawn once a frame"
     finally:
-        frontend.gumbel_noise = draw
+        frontend.split_gumbel = draw
     n = len(frames)
     return summary(vo.state.poses[:n].cpu().numpy(), vo.state.metrics[:n, 0].cpu().numpy(), gt,
                    verdicts)
