@@ -68,10 +68,22 @@ card a rank where there are two, else both ranks sharing cuda:0): the
 launch rule), and with two cards the distributed BA at its sweep's first
 point, 1 process against 2 (ranks bit-equal, arms within 1e-3).
 
-The kernel checks and times and the batched-against-single check run
-first, alone on the card. The phases after them run in four worker
-processes of this script (`--worker <group>`, WORKER_GROUPS), started
-together on the one card and each running its phases in order; a
+svo_tpu jits its cadenced chunk step with the state donated; the port
+captures it once as a CUDA graph and replays it (pipeline/graph.py), the
+default on the card, so every engine above runs its cadenced chunks
+captured. phase_graph_timing reads, alone on the card, the capture's
+seconds, a warm chunk's wall eager against replayed in turns, a replayed
+step's device time and busy share, and the peak memory with the graph's
+pool; phase_graph holds the captured runs against the eager loop
+(graph=False) at bench.py's configuration, one stream and 8 with each
+engine and Config() (ORB) for one stream: every leaf of the final state
+bit-equal, the same launches, by the launch rule.
+
+The kernel checks and times, the batched-against-single check and the
+graph's timing run first, alone on the card. The phases after them run in
+five worker processes of this script (`--worker <group>`,
+WORKER_GROUPS), started together on the one card and each running its
+phases in order; a
 worker's output is printed when it ends, and a failed worker stops the
 others. Every phase prints its lines and its wall; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits
@@ -977,8 +989,11 @@ def _config_and_camera(seq, device=None, use_orb=False):
 def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     """Device activities and device ms per frame step (torch.profiler) over
     one warm cadenced chunk of n frames: one keyframe step, n-1 tracking
-    steps. The profiler counts every device activity: kernels, fills and
-    copies. Also the mean device us per launch of the port's own kernels.
+    steps, replayed (the first chunk runs eagerly and is captured, the
+    second is the replay under the profiler; the replay's in-graph copy of
+    the state into the step's buffers counts among the activities). The
+    profiler counts every device activity: kernels, fills and copies.
+    Also the mean device us per launch of the port's own kernels.
     first: the (left, right) f32 tensors of frame 0; chunks: two
     (lefts_u8, rights_u8) chunks of n frames, the first to warm up, the
     second profiled. Tensors that carry a stream axis drive the batched step,
@@ -2195,8 +2210,9 @@ def phase_tools(kernels, frames, seq) -> dict:
 
     for engine in ENGINES:
         before = _kernel_counts(_counts(kernels))
-        r, _ = bench_batched.bench(bench_batched.parse_args(argv + ["--lk-engine", engine]),
-                                   seq=seq, frames=frames)
+        # [0]: the engine, and its graph's memory pool, go before the next one
+        r = bench_batched.bench(bench_batched.parse_args(argv + ["--lk-engine", engine]),
+                                seq=seq, frames=frames)[0]
         print(f"tools | bench_batched: {bench_batched.summary_line(r)} | per-stream ATE "
               f"{' '.join(f'{a:.4f}' for a in r['ate_per_stream_m'])} m")
         check_ates(f"bench_batched {engine}", r["ate_per_stream_m"])
@@ -2469,6 +2485,159 @@ def phase_scaling() -> dict:
     return dict(launches=launches, ba=point, frontend=fe)
 
 
+def _state_diff(a, b) -> tuple[bool, float]:
+    """Whether every leaf of two states is bit-equal, and the largest pose
+    difference (m, translation) between their trajectories."""
+    from svo_tpu_torch.pipeline.state import leaves
+
+    same = all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    dt = (a.poses[..., :3, 3] - b.poses[..., :3, 3]).norm(dim=-1).max()
+    return same, float(dt)
+
+
+def phase_graph(kernels, frames, seq) -> dict:
+    """svo_tpu's compiled chunk dispatch (jax.jit with the state donated;
+    svo_tpu_torch/pipeline/graph.py): the cadenced chunk captured once as a
+    CUDA graph and replayed, against the eager loop (graph=False) on the
+    same inputs, at bench.py's configuration and full width (97 frames
+    376x1241, chunk 12, cadence 6): one stream through StereoVO.run_chunked
+    and 8 streams (even forward, odd reversed) through
+    BatchedStereoVO.process_chunk, each KLT engine, and Config() (ORB) for
+    one stream, fused. Each captured run's final state must equal the
+    eager run's leaf for leaf, bit for bit (the same kernels in the same
+    order), every kernel must be launched as often in both, and by the
+    launch rule, and every ATE must stay under its limit. Returns the
+    launches of the captured runs."""
+    from svo_tpu_torch.eval.trajectory import ate_rmse
+    from svo_tpu_torch.parallel.batched import BatchedStereoVO
+    from svo_tpu_torch.pipeline.odometry import StereoVO
+
+    staged = _stage_batched(frames, seq)
+
+    def single(engine, graph, use_orb):
+        cfg, cam = _config_and_camera(seq, use_orb=use_orb)
+        vo = StereoVO(cfg, cam, chunk=CHUNK, kf_cadence=CADENCE, lk_engine=engine, graph=graph)
+        res = vo.run_chunked(frames)
+        ate = float(ate_rmse(res.poses, seq.gt_poses))
+        limit = ORB_ATE_LIMIT_M["forward"] if use_orb else ATE_LIMIT_M
+        check(np.isfinite(ate) and ate <= limit, f"graph {engine}: ATE {ate} m > {limit} m")
+        return vo, [ate], int(res.kf_flags.sum())
+
+    def batched(engine, graph, use_orb):
+        bvo = BatchedStereoVO(staged.cfg, staged.cam, STREAMS, chunk=CHUNK, kf_cadence=CADENCE,
+                              lk_engine=engine, graph=graph)
+        bvo.start(staged.l0, staged.r0)
+        for c in staged.chunks:
+            bvo.process_chunk(*c)
+        ates = _stream_ates(bvo.trajectories(staged.n_stepped + 1), staged)
+        check(all(np.isfinite(a) and a <= ATE_LIMIT_M for a in ates),
+              f"graph batched {engine}: per-stream ATE {ates}")
+        return bvo, ates, int(bvo.state.kf_flags[0, : staged.n_stepped + 1].sum())
+
+    out = {}
+    cases = [(f"S=1 {e}", single, e, False) for e in ENGINES]
+    cases += [(f"S={STREAMS} {e}", batched, e, False) for e in ENGINES]
+    cases.append(("S=1 fused ORB", single, "fused", True))
+    for tag, drive, engine, use_orb in cases:
+        run = {}
+        for graph in (False, None):
+            _zero(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng, ates, n_kf = drive(engine, graph, use_orb)
+            torch.cuda.synchronize()
+            run[graph] = dict(eng=eng, ates=ates, n_kf=n_kf, wall=time.perf_counter() - t0,
+                              counts=_counts(kernels), peak=torch.cuda.max_memory_allocated())
+        eager, cap = run[False], run[None]
+        step = cap["eng"]._chunk_step
+        check(step.capture, f"graph {tag}: the default step was not captured")
+        same, dt = _state_diff(cap["eng"].state, eager["eng"].state)
+        print(f"graph {tag}: captured against the eager loop: every leaf bit-equal {same} | max "
+              f"|pose diff| {dt:.3g} m | ATE {' '.join(f'{a:.4f}' for a in cap['ates'])} m | "
+              f"launches {cap['counts']} (eager {eager['counts']}) | capture + instantiate "
+              f"{step.capture_s:.3f} s, launches a replay {step.launches_per_replay} | run wall "
+              f"{cap['wall']:.2f} s (eager {eager['wall']:.2f} s) | peak device memory "
+              f"{cap['peak'] / 2**20:.1f} MiB with the graph's pool (eager "
+              f"{eager['peak'] / 2**20:.1f} MiB)", flush=True)
+        check(same, f"graph {tag}: the captured run differs from the eager loop by {dt} m")
+        check(cap["counts"] == eager["counts"],
+              f"graph {tag}: launches {cap['counts']}, eager {eager['counts']}")
+        _check_launches(f"graph {tag}", engine, cap["counts"], cap["n_kf"])
+        out[tag] = cap["counts"]
+        del run, eager, cap, step
+    return out
+
+
+def phase_graph_timing(frames, seq) -> dict:
+    """Readings of the captured chunk against the eager loop, alone on the
+    card, fused, one stream and 8 (bench.py's sequence; 8 streams even
+    forward, odd reversed): the host seconds of the capture and the
+    graph's instantiation; the wall of one warm 12-frame chunk, eager and
+    replayed in turns from the same saved state (the replay copies it into
+    the step's buffers first), 10 pairs; the device time and activities of
+    a replayed chunk (profiler) a frame step, and the busy share: device
+    time over the span from the replay's first device activity to its last
+    (traced kernels run a little longer than untraced ones, so device time
+    over the untraced wall can pass 1); peak device memory with the graph's
+    pool."""
+    from svo_tpu_torch.pipeline import frontend
+    from svo_tpu_torch.pipeline.state import clone
+
+    out = {}
+    for S in (1, STREAMS):
+        cfg, cam = _config_and_camera(seq, "cuda")
+        streams = [frames if s % 2 == 0 else frames[::-1] for s in range(S)]
+
+        def stage(ts, k):
+            x = np.stack([np.stack([_u8(st[t][k]) for st in streams]) for t in ts])
+            return torch.from_numpy(x if S > 1 else x[:, 0]).cuda()
+
+        first = [torch.from_numpy(np.stack([st[0][k] for st in streams])).cuda() for k in (1, 2)]
+        if S == 1:
+            first = [x[0] for x in first]
+        chunks = [tuple(stage(range(1 + c * CHUNK, 1 + (c + 1) * CHUNK), k) for k in (1, 2))
+                  for c in range(2)]
+        eager = frontend.make_cadenced_chunk_step(cam, cfg, CHUNK, CADENCE, "fused", graph=False)
+        captured = frontend.make_cadenced_chunk_step(cam, cfg, CHUNK, CADENCE, "fused")
+        st = frontend.make_bootstrap(cam, cfg, "fused")(*first, list(range(S)) if S > 1 else 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        saved = clone(captured(st, *chunks[0]))  # the chunk run eagerly, then captured
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        walls = {"eager": [], "replay": []}
+        for _ in range(10):
+            for name, fn in (("eager", eager), ("replay", captured)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(saved, *chunks[1])
+                torch.cuda.synchronize()
+                walls[name].append(1e3 * (time.perf_counter() - t0))
+        dev = device_events(lambda: captured(saved, *chunks[1]))
+        acts = sum(e.count for e in dev)
+        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        span_ms = (max(e.last_ns for e in dev) - min(e.first_ns for e in dev)) / 1e6
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        out[S] = dict(capture_s=captured.capture_s, eager_ms=walls["eager"],
+                      replay_ms=walls["replay"], device_ms_step=dev_ms / CHUNK,
+                      activities_step=acts / CHUNK, busy=dev_ms / span_ms,
+                      peak=peak, reserved=torch.cuda.memory_reserved())
+        print(f"graph timing S={S} fused, alone on the card: capture + instantiate "
+              f"{captured.capture_s:.3f} s | warm 12-frame chunk wall, 10 pairs in turns: eager "
+              f"median {med['eager']:.1f} ms ({min(walls['eager']):.1f}-{max(walls['eager']):.1f}), "
+              f"replay median {med['replay']:.2f} ms ({min(walls['replay']):.2f}-"
+              f"{max(walls['replay']):.2f}), {med['eager'] / med['replay']:.1f}x | replayed "
+              f"chunk: {acts / CHUNK:.0f} device activities and {dev_ms / CHUNK:.3f} ms device "
+              f"time a frame step, busy share {dev_ms / span_ms:.3f} of its device span "
+              f"{span_ms:.2f} ms ({dev_ms / med['replay']:.3f} of the untraced replay wall) | "
+              f"peak device memory {peak / 2**20:.1f} MiB with the graph's pool, reserved "
+              f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB", flush=True)
+        check(acts > 0, f"graph timing S={S}: the profiler saw no device activity in a replay")
+        del eager, captured, st, saved, chunks
+    return out
+
+
 def _group_single(ctx) -> dict:
     """One stream's main paths: the small agreement runs, bench.py's path
     with each engine, the window BA, the shipping configuration through
@@ -2536,6 +2705,13 @@ def _group_long(ctx) -> dict:
             "launches_eval_tables": [tables["counts"]]}
 
 
+def _group_graph(ctx) -> dict:
+    """The captured chunk dispatch against the eager loop."""
+    graph = phase_graph(ctx.kernels, ctx.frames, ctx.seq)
+    ctx.done("captured chunk dispatch against the eager loop")
+    return {"launches_graph": list(graph.values())}
+
+
 def _group_tools(ctx) -> dict:
     """The developer tools and the scaling harness."""
     tools = phase_tools(ctx.kernels, ctx.frames, ctx.seq)
@@ -2548,11 +2724,11 @@ def _group_tools(ctx) -> dict:
 
 # The phases after the kernel checks, in worker processes that share the
 # card, started together: the phases are host-bound (the card is busy for
-# about a tenth of a frame step), so four run side by side in about the
+# a small share of a frame step), so five run side by side in about the
 # time of the longest. Each worker runs its phases in order, each phase
 # with its own launch counts, and writes what the kernel line needs.
 WORKER_GROUPS = {"single": _group_single, "batched": _group_batched,
-                 "long": _group_long, "tools": _group_tools}
+                 "long": _group_long, "tools": _group_tools, "graph": _group_graph}
 
 
 def _kernels() -> list:
@@ -2670,6 +2846,8 @@ def main() -> int:
     rng = phase_rng()
     phase_batched_rng()
     done("threefry kernel and batched streams against single streams")
+    phase_graph_timing(frames, seq)
+    done("captured chunk against the eager loop, timed")
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "frames.npy"), np.stack([f[1:] for f in frames]))
         del frames
@@ -2680,7 +2858,7 @@ def main() -> int:
     runs = {}
     for key in ("launches_single_stream", "launches_batched", "launches_shipping_orb",
                 "launches_soak", "launches_worlds", "launches_recovery", "launches_eval_ba",
-                "launches_eval_tables", "launches_tools"):
+                "launches_eval_tables", "launches_tools", "launches_graph"):
         runs[key] = [c for r in results.values() for c in r.get(key, ())]
     scaling_launches = results["tools"]["scaling_launches"]
 

@@ -72,8 +72,11 @@ def per_second(fn, work: int, reps: int = 10, device="cuda") -> float:
 
 def device_events(fn) -> list:
     """The profiler's records of every device activity (kernels, fills and
-    copies) of one call of fn, by name: each has .key, .count and
-    .self_device_time_total (microseconds). Read from the trace's raw
+    copies) of one call of fn, by name: each has .key, .count,
+    .self_device_time_total (microseconds) and .first_ns / .last_ns, where
+    the name's first activity began and its last ended (the span of the
+    call's device work is from the least first_ns to the largest last_ns).
+    Read from the trace's raw
     records: key_averages() would first build the tree of every host op,
     which takes tens of seconds for one frame step's ~7,700 activities and
     their ops, and gives the same counts and times."""
@@ -91,8 +94,10 @@ def device_events(fn) -> list:
         rec = by_name.get(e.name())
         if rec is None:
             rec = by_name[e.name()] = SimpleNamespace(key=e.name(), count=0,
-                                                      self_device_time_total=0.0)
+                                                      self_device_time_total=0.0,
+                                                      first_ns=e.start_ns(), last_ns=e.end_ns())
         rec.count += 1
+        rec.first_ns, rec.last_ns = min(rec.first_ns, e.start_ns()), max(rec.last_ns, e.end_ns())
         if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
             rec.self_device_time_total += e.duration_ns() / 1e3  # as key_averages()
     return list(by_name.values())

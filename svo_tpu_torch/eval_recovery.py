@@ -130,12 +130,6 @@ def inject_drift(state, lo: int, hi: int, rot_deg: float, trans_m: float):
     )
 
 
-def _clone(state):
-    from svo_tpu_torch.pipeline.state import leaves, unflatten
-
-    return unflatten([x.clone() for x in leaves(state)], state)
-
-
 def _apply(state, res, frame):
     return state._replace(map=state.map._replace(points=res.map.points), poses=res.poses,
                           pose=res.poses[frame])
@@ -203,6 +197,7 @@ def recover_from(vo, ls, rs, gt, args, log=lambda m: None, backend=True):
     refinement): the check that the arms differ by the back-end alone."""
     from svo_tpu_torch.eval.trajectory import ate_rmse
     from svo_tpu_torch.parallel.global_opt import refine_global
+    from svo_tpu_torch.pipeline.state import clone, host
 
     hi = args.inject_at - 1
     lo = hi - args.span + 1
@@ -212,7 +207,9 @@ def recover_from(vo, ls, rs, gt, args, log=lambda m: None, backend=True):
     def refine(st):
         return refine_global(st.map, st.poses, st.frame_id, K_mat, bfx)
 
-    healthy = vo.state
+    # the chunk step's own buffers (pipeline/graph.py), which the arms' chunks
+    # overwrite: both arms start from copies
+    healthy = clone(vo.state)
     corrupt = inject_drift(healthy, lo, hi, args.rot_deg, args.trans_m)
     pose_err = float(np.linalg.norm(corrupt.poses[hi, :3, 3].cpu().numpy() - gt[hi][:3, 3]))
     log(f"injected drift: newest-frame pose error {pose_err:.2f} m / {args.rot_deg:.1f} deg "
@@ -234,8 +231,8 @@ def recover_from(vo, ls, rs, gt, args, log=lambda m: None, backend=True):
     for arm, start, every in (("a", corrupt, 0),
                               ("b", swept, REFINE_EVERY) if backend else ("b", corrupt, 0)):
         keys.append(_key(start))
-        vo.state = _chunks(vo, _clone(start), ls, rs, hi // CH, (n - 1) // CH, refine, every)
-        arms[arm] = vo.state.poses[:n].cpu().numpy()
+        vo.state = _chunks(vo, clone(start), ls, rs, hi // CH, (n - 1) // CH, refine, every)
+        arms[arm] = host(vo.state.poses[:n])
         kf[arm] = int(vo.state.kf_flags[args.inject_at:n].sum())
     ate_a = ate_rmse(arms["a"][args.inject_at:], gt[args.inject_at:n], align=False)
     ate_b = ate_rmse(arms["b"][args.inject_at:], gt[args.inject_at:n], align=False)

@@ -10,7 +10,9 @@ bound by its launches, not by the card, so S streams cost about the
 launches of one.
 
 Keyframing in the chunked path is statically cadenced
-(frontend.make_cadenced_chunk_step): no step branches on data. The
+(frontend.make_cadenced_chunk_step): no step branches on data, so on the
+card the chunk is captured once as a CUDA graph and replayed (svo_tpu jits
+its vmapped chunk with the state donated). The
 per-frame `process` path keeps the reference's dynamic rule: each stream
 decides for itself, replenishment is computed for all streams and selected
 per stream (what jax.vmap makes of svo_tpu's lax.cond), and is skipped on
@@ -29,7 +31,7 @@ from svo_tpu_torch.ops.klt import ENGINES
 from svo_tpu_torch.parallel.global_opt import refine_global
 from svo_tpu_torch.pipeline import frontend
 from svo_tpu_torch.pipeline.odometry import resolve_device
-from svo_tpu_torch.pipeline.state import VoState
+from svo_tpu_torch.pipeline.state import VoState, host
 
 
 class BatchedStereoVO:
@@ -47,6 +49,10 @@ class BatchedStereoVO:
             default raises.
         lk_engine: the KLT engine of every tracker call, "patches" or
             "fused" (ops/klt.py).
+        graph: the chunked path's dispatch (frontend.make_cadenced_chunk_step):
+            by default captured once as a CUDA graph on the card and replayed
+            with the state donated (self.state is the step's own buffers
+            until the next chunk); False runs the eager loop.
     """
 
     def __init__(
@@ -58,6 +64,7 @@ class BatchedStereoVO:
         kf_cadence: int = 0,
         device: str | torch.device = "cuda",
         lk_engine: str = "patches",
+        graph: bool | None = None,
     ):
         if lk_engine not in ENGINES:
             raise ValueError(f"lk_engine {lk_engine!r} is not one of {ENGINES}")
@@ -87,7 +94,7 @@ class BatchedStereoVO:
         self.last_refine = None
         self._boot = frontend.make_bootstrap(self.camera, cfg, lk_engine)
         self._chunk_step = frontend.make_cadenced_chunk_step(
-            self.camera, cfg, chunk, kf_cadence, lk_engine
+            self.camera, cfg, chunk, kf_cadence, lk_engine, graph=graph
         )
 
     # -- driving --------------------------------------------------------
@@ -142,7 +149,7 @@ class BatchedStereoVO:
 
     def trajectories(self, n_frames: int) -> np.ndarray:
         """(S, n_frames, 4, 4) camera-to-world trajectories."""
-        return self.state.poses[:, :n_frames].cpu().numpy()
+        return host(self.state.poses[:, :n_frames])
 
     # -- global refinement, run between chunks --------------------------
 

@@ -9,8 +9,10 @@ Port of svo_tpu/pipeline/frontend.py: one step per frame,
 as functions of (state, images) -> state. svo_tpu's lax.scan over a chunk
 is a Python loop over frames here. The cadenced chunk step makes no host
 round trip per frame: every data-dependent choice is a torch.where, as in
-svo_tpu. Only kf_mode="dynamic" branches on the host, once per frame, and
-the window BA (cfg.ba.enabled) once per keyframe step.
+svo_tpu. So, as svo_tpu jits it with the state donated, it is captured once
+as a CUDA graph on the card and replayed over static buffers
+(pipeline/graph.py). Only kf_mode="dynamic" branches on the host, once per
+frame, and the window BA (cfg.ba.enabled) once per keyframe step.
 
 The PnP noise comes from the state's threefry key, as in svo_tpu: each step
 splits state.rng, keeps one half and draws its (hypotheses, N) Gumbel noise
@@ -56,6 +58,7 @@ from svo_tpu_torch.ops import detect as detect_mod
 from svo_tpu_torch.ops.index import scatter_drop, take_rows
 from svo_tpu_torch.ops.klt import KltTracker
 from svo_tpu_torch.ops.random import prng_key, split_gumbel
+from svo_tpu_torch.pipeline.graph import ChunkGraph
 from svo_tpu_torch.pipeline.state import FeatureSet, MapState, VoState
 
 
@@ -507,7 +510,8 @@ def make_chunked_step(camera: Camera, cfg: Config, chunk: int, lk_engine: str = 
 
 
 def make_cadenced_chunk_step(
-    camera: Camera, cfg: Config, chunk: int, cadence: int, lk_engine: str = "patches"
+    camera: Camera, cfg: Config, chunk: int, cadence: int, lk_engine: str = "patches",
+    graph: bool | None = None,
 ):
     """Multi-frame step with a STATIC keyframe cadence: each group of
     `cadence` frames starts with one unconditional-replenish step
@@ -517,9 +521,25 @@ def make_cadenced_chunk_step(
     Returns (state, lefts_u8 (K,H,W), rights_u8) -> state;
     `chunk` must be a multiple of `cadence`. A batched state of S streams
     takes (K,S,H,W) frame-major inputs and steps the streams in lockstep
-    (svo_tpu's n_streams argument is read off the state here)."""
+    (svo_tpu's n_streams argument is read off the state here).
+
+    graph: svo_tpu's step is jax.jit(run_chunk, donate_argnums=(0,)); its
+    counterpart is pipeline/graph.ChunkGraph, a CUDA graph of the chunk
+    replayed over static buffers with the state donated (the returned state
+    is the step's own buffers, valid until its next call). None (the
+    default) captures on a CUDA camera and runs the same static-buffer code
+    eagerly on a CPU one; True captures and raises on the CPU; False
+    returns the eager loop, which launches every op of every frame from the
+    host and leaves the caller's state alone (the parity reference). With
+    cfg.ba.enabled the keyframe steps read the host (the window BA's rule),
+    which no graph can hold: None gives the eager loop and True raises."""
     if cadence < 1 or chunk % cadence:
         raise ValueError(f"chunk {chunk} must be a positive multiple of cadence {cadence}")
+    if cfg.ba.enabled:
+        if graph:
+            raise ValueError("graph=True: with cfg.ba.enabled the keyframe steps read the "
+                             "host, which a CUDA graph cannot hold")
+        graph = False
 
     def run_chunk(state: VoState, lefts_u8, rights_u8) -> VoState:
         _check_chunk(state, lefts_u8, rights_u8)
@@ -531,7 +551,9 @@ def make_cadenced_chunk_step(
             )
         return state
 
-    return run_chunk
+    if graph is False:
+        return run_chunk
+    return ChunkGraph(run_chunk, _check_chunk, camera.K.device, capture=graph)
 
 
 def make_bootstrap(camera: Camera, cfg: Config, lk_engine: str = "patches"):

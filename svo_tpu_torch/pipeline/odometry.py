@@ -18,7 +18,7 @@ from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry.camera import Camera
 from svo_tpu_torch.ops.klt import ENGINES
 from svo_tpu_torch.pipeline import frontend
-from svo_tpu_torch.pipeline.state import VoState
+from svo_tpu_torch.pipeline.state import VoState, host
 
 
 @dataclass
@@ -63,6 +63,7 @@ class StereoVO:
         kf_cadence: int = 0,
         device: str | torch.device = "cuda",
         lk_engine: str = "patches",
+        graph: bool | None = None,
     ):
         """Runs on the card unless device="cpu" is passed; without a CUDA
         device the default raises. chunk > 0 enables run_chunked: with
@@ -72,6 +73,11 @@ class StereoVO:
         data-dependent keyframe rule inside the chunk
         (frontend.make_chunked_step, one host read a frame). process() and
         run() use the data-dependent rule.
+        graph goes to make_cadenced_chunk_step: by default the cadenced
+        chunk is captured once as a CUDA graph on the card and replayed with
+        the state donated (self.state is then the step's own buffers until
+        the next chunk; clone what you keep), False runs the eager loop.
+        The data-dependent rule is never captured: graph=True raises there.
         The state carries svo_tpu's PnP key, PRNGKey(seed) at start(), so
         the run draws svo_tpu's noise for the same seed. lk_engine picks
         the KLT engine of every tracker call: "patches" (svo_tpu's default)
@@ -94,8 +100,10 @@ class StereoVO:
                     f"chunk ({chunk}) must be a multiple of kf_cadence ({kf_cadence})"
                 )
             self._chunk_step = frontend.make_cadenced_chunk_step(
-                self.camera, config, chunk, kf_cadence, lk_engine
+                self.camera, config, chunk, kf_cadence, lk_engine, graph=graph
             )
+        elif graph:
+            raise ValueError("graph=True needs the cadenced chunk step (chunk and kf_cadence)")
         elif chunk:
             self._chunk_step = frontend.make_chunked_step(self.camera, config, chunk, lk_engine)
         self.state: VoState | None = None
@@ -205,12 +213,12 @@ class StereoVO:
         st = self.state
         n_pts = int(st.map.n_points)
         return RunResult(
-            poses=st.poses[:n].cpu().numpy(),
-            kf_flags=st.kf_flags[:n].cpu().numpy(),
-            metrics=st.metrics[:n].cpu().numpy(),
+            poses=host(st.poses[:n]),
+            kf_flags=host(st.kf_flags[:n]),
+            metrics=host(st.metrics[:n]),
             n_frames=n,
             total_time_s=total_s,
             fps=(n - 1) / total_s if total_s > 0 else 0.0,
-            map_points=st.map.points[:n_pts].cpu().numpy(),
+            map_points=host(st.map.points[:n_pts]),
             per_frame_ms=per_frame_ms or [],
         )

@@ -128,10 +128,17 @@ def from_numpy(tree, device) -> VoState:
     )
 
 
+def host(x: torch.Tensor) -> np.ndarray:
+    """x as a numpy array of its own. On the CPU .numpy() would share the
+    tensor's memory, and a captured chunk step (pipeline/graph.py) writes
+    its state's buffers again at its next call."""
+    return x.detach().to("cpu", copy=True).numpy()
+
+
 def to_numpy(state: VoState) -> VoState:
-    """The port's VoState -> the same structure with numpy leaves, the key
-    uint32 as svo_tpu's."""
-    out = _map_leaves(lambda x: x.detach().cpu().numpy(), state)
+    """The port's VoState -> the same structure with numpy leaves (copies),
+    the key uint32 as svo_tpu's."""
+    out = _map_leaves(host, state)
     return out._replace(rng=out.rng.view(np.uint32))
 
 
@@ -169,6 +176,12 @@ def unflatten(leaf_list, like: VoState) -> VoState:
     leaf_list."""
     it = iter(leaf_list)
     return _map_leaves(lambda _: next(it), like)
+
+
+def clone(state: VoState) -> VoState:
+    """A copy of every leaf: what a caller keeps of a state that a captured
+    chunk step (pipeline/graph.py) is about to overwrite."""
+    return _map_leaves(torch.clone, state)
 
 
 def stack(states) -> VoState:

@@ -73,7 +73,7 @@ def saved(data, tmp_path_factory):
     bvo.process_chunk(*data["chunks"][0])
     bvo.process_chunk(*data["chunks"][1])
     bvo.refine()
-    at_save = bvo.state
+    at_save = tstate.clone(bvo.state)  # the next chunk writes the step's buffers
     save_state(path, bvo.state)
     _tail(bvo, data)
     return dict(path=path, at_save=at_save, final=bvo.state)

@@ -6,8 +6,8 @@ back-end, the checkpoint module, the probe, the tracker timing script,
 the readers, the three entry points, the reference CPU pipeline, the soak,
 worlds, recovery, refinement-sweep, fleet and EuRoC harnesses, the
 distributed modules, the soak's reference drift, the timing and
-profiling tools and the scaling harness with its two workers and its
-trace among them;
+profiling tools, the scaling harness with its two workers and its
+trace, and the captured chunk dispatch among them;
 cv2 only when
 the reference pipeline is built) and chip_smoke.py,
 runs detect_fast and detect_orb on the CPU, constructs
@@ -53,7 +53,7 @@ assert {"svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
         "svo_tpu_torch.time_chunk", "svo_tpu_torch.profile_chunk", "svo_tpu_torch.klt_bench",
         "svo_tpu_torch.microbench", "svo_tpu_torch._staging", "svo_tpu_torch.scaling_eff",
         "svo_tpu_torch.scaling_worker", "svo_tpu_torch.frontend_scaling_worker",
-        "svo_tpu_torch.scaling_trace"} <= set(mods)
+        "svo_tpu_torch.scaling_trace", "svo_tpu_torch.pipeline.graph"} <= set(mods)
 assert "cv2" not in sys.modules  # the reference pipeline imports it when built
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 from svo_tpu_torch.config import Config

@@ -191,15 +191,20 @@ def test_alloc_and_record_drop_semantics():
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
-@pytest.mark.parametrize("lk_engine", ["patches", "fused"])
-def test_cadenced_step_makes_no_host_sync(seq, monkeypatch, lk_engine):
+@pytest.mark.parametrize("lk_engine, use_orb", [("patches", False), ("fused", False),
+                                                ("fused", True)],
+                         ids=["patches", "fused", "orb-fused"])
+def test_cadenced_step_makes_no_host_sync(seq, monkeypatch, lk_engine, use_orb):
     """The cadenced chunk step reads no tensor value on the host (svo_tpu
     branches on none either): any bool()/int()/float()/.item() on a tensor
     inside it fails the test. Both KLT engines, so the fused level's
-    wrapper is held to it too."""
+    wrapper is held to it too, and Config()'s ORB detector at cadence 6:
+    what lets the card capture the chunk, the shipping configuration's
+    included, as one CUDA graph (pipeline/graph.py)."""
     frames = list(seq)[:7]
     _, cam_t = _cams(seq)
     _, cfg_t = _cfgs()
+    cfg_t = dataclasses.replace(cfg_t, use_orb=use_orb)
     vo = TStereoVO(cfg_t, cam_t, chunk=6, kf_cadence=6, device="cpu", lk_engine=lk_engine)
     vo.start(frames[0][1], frames[0][2])
     lefts = torch.from_numpy(np.stack([f[1] for f in frames[1:]]).astype(np.uint8))
