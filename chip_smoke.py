@@ -68,20 +68,27 @@ card a rank where there are two, else both ranks sharing cuda:0): the
 launch rule), and with two cards the distributed BA at its sweep's first
 point, 1 process against 2 (ranks bit-equal, arms within 1e-3).
 
-svo_tpu jits its cadenced chunk step with the state donated; the port
-captures it once as a CUDA graph and replays it (pipeline/graph.py), the
-default on the card, so every engine above runs its cadenced chunks
-captured. phase_graph_timing reads, alone on the card, the capture's
-seconds, a warm chunk's wall eager against replayed in turns, a replayed
-step's device time and busy share, and the peak memory with the graph's
-pool; phase_graph holds the captured runs against the eager loop
+svo_tpu jits its frame loop with the state donated, its data-dependent
+branches (the dynamic keyframe rule, the window BA) inside as lax.cond;
+the port captures each step as CUDA graphs, one per branch key read once a
+call, and replays them (pipeline/graph.py), the default on the card, so
+every engine above runs captured: the cadenced chunks, the frame steps of
+the dynamic rule, the window BA. phase_graph_timing and
+phase_frame_graph_timing read, alone on the card, the captures' seconds,
+a warm chunk's or 12-frame stretch's wall eager against replayed in turns,
+a replayed step's device time, and the peak memory with the graphs'
+pool; phase_graph holds the captured cadenced runs against the eager loop
 (graph=False) at bench.py's configuration, one stream and 8 with each
-engine and Config() (ORB) for one stream: every leaf of the final state
-bit-equal, the same launches, by the launch rule.
+engine and Config() (ORB) for one stream, and phase_frame_graph the
+captured frame steps (one stream frame by frame with each engine, the
+dynamic rule in ORB chunks, 8 streams frame by frame, the window BA in
+chunks and frame by frame): every leaf of the final state bit-equal, the
+same launches, by the launch rule, one key read a frame step, the BA's
+solves where its rule says.
 
 The kernel checks and times, the batched-against-single check and the
-graph's timing run first, alone on the card. The phases after them run in
-five worker processes of this script (`--worker <group>`,
+graphs' timing run first, alone on the card. The phases after them run in
+six worker processes of this script (`--worker <group>`,
 WORKER_GROUPS), started together on the one card and each running its
 phases in order; a
 worker's output is printed when it ends, and a failed worker stops the
@@ -93,6 +100,7 @@ non-zero before printing a result. The last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1558,41 +1566,71 @@ def phase_ba_throughput(bvo) -> None:
           f"device activities and {dev_ms / iters:.3f} ms device time an iteration")
 
 
+@contextlib.contextmanager
+def _recording_keys():
+    """Every branch key the frame steps read (frontend._read_key, the
+    step's one host read), in order, into the list this yields."""
+    from svo_tpu_torch.pipeline import frontend
+
+    read, keys = frontend._read_key, []
+
+    def recorded(flags):
+        keys.append(read(flags))
+        return keys[-1]
+
+    frontend._read_key = recorded
+    try:
+        yield keys
+    finally:
+        frontend._read_key = read
+
+
+def _solved_frames(keys, chunked: bool) -> list:
+    """The frames whose step ran the window BA, from the keys read in
+    order: a cadenced chunk's BA schedule (chunk c's keyframe step j is
+    frame 1 + c * CHUNK + j * CADENCE), or a frame step's (any keyframe,
+    any BA) (frame i + 1)."""
+    if chunked:
+        return [1 + c * CHUNK + j * CADENCE for c, k in enumerate(keys)
+                for j, due in enumerate(k) if due]
+    return [i + 1 for i, k in enumerate(keys) if k[1]]
+
+
+def _ba_due(kf_flags, cfg) -> list:
+    """The frames at which the window BA's rule fires, from a run's
+    keyframe flags."""
+    count = np.cumsum(kf_flags)
+    return [f for f in range(1, len(kf_flags)) if kf_flags[f] and count[f] >= cfg.ba.window
+            and count[f] % cfg.ba.interval == 0]
+
+
 def phase_ba_main_path(frames, seq, ate_off: float) -> None:
     """One stream with the in-pipeline window BA at its defaults (window 8
     keyframes, every 4 keyframes, 10 iterations), fused engine, bench.py's
-    sequence through run_chunked. The BA solves are counted at the
-    frontend's call and held against what its rule gives from kf_flags."""
+    sequence through run_chunked, each chunk a replay of the graph of its
+    BA schedule. The BA solves are counted from the schedules the chunks
+    read (a replay runs no Python) and held against what the rule gives
+    from kf_flags."""
     from svo_tpu_torch.config import BaParams, Config
     from svo_tpu_torch.eval.trajectory import ate_rmse
     from svo_tpu_torch.geometry import camera as cam_mod
-    from svo_tpu_torch.pipeline import frontend
     from svo_tpu_torch.pipeline.odometry import StereoVO
 
     cfg = Config(use_orb=False, image_height=SHAPE[0], image_width=SHAPE[1], ba=BaParams(enabled=True))
     cam = cam_mod.from_intrinsics(seq.K[0, 0], seq.K[1, 1], seq.K[0, 2], seq.K[1, 2], seq.baseline)
     vo = StereoVO(cfg, cam, chunk=CHUNK, kf_cadence=CADENCE, lk_engine="fused")
-    solved = []
-    window_ba = frontend._window_ba
-
-    def counted(mp, poses, kf_flags, fid, camera, cfg):
-        solved.append(int(fid))
-        return window_ba(mp, poses, kf_flags, fid, camera, cfg)
-
-    frontend._window_ba = counted
-    try:
+    with _recording_keys() as keys:
         res = vo.run_chunked(frames)
-    finally:
-        frontend._window_ba = window_ba
+    solved = _solved_frames(keys, True)
+    check(vo._chunk_step.capture, "BA main path: the chunk was not captured")
     check(bool(np.isfinite(res.poses).all()), "BA main path: NaN/inf in the poses")
-    count = np.cumsum(res.kf_flags)
-    due = [f for f in range(1, N_FRAMES) if res.kf_flags[f] and count[f] >= cfg.ba.window
-           and count[f] % cfg.ba.interval == 0]
+    due = _ba_due(res.kf_flags, cfg)
     ate = float(ate_rmse(res.poses, seq.gt_poses))
     print(f"BA main path (ba.enabled, window {cfg.ba.window}, interval {cfg.ba.interval}, fused): "
           f"ATE {ate:.4f} m beside {ate_off:.4f} m with BA off (limit {ATE_LIMIT_M}) | keyframes "
           f"{int(res.kf_flags.sum())} | BA solves at frames {solved}, the rule gives {due} | "
-          f"{res.fps:.3f} frames/s | mean inlier ratio {float(res.metrics[1:, 1].mean()):.4f}")
+          f"schedules captured {sorted(vo._chunk_step.graphs)} | {res.fps:.3f} frames/s | mean "
+          f"inlier ratio {float(res.metrics[1:, 1].mean()):.4f}")
     check(solved == due, f"BA solves at {solved}, the rule gives {due}")
     check(len(due) == 3, f"expected 3 BA solves in {N_FRAMES} frames, the rule gives {len(due)}")
     check(np.isfinite(ate) and ate <= ATE_LIMIT_M, f"BA main path: ATE {ate} m > {ATE_LIMIT_M} m")
@@ -2556,7 +2594,8 @@ def phase_graph(kernels, frames, seq) -> dict:
         print(f"graph {tag}: captured against the eager loop: every leaf bit-equal {same} | max "
               f"|pose diff| {dt:.3g} m | ATE {' '.join(f'{a:.4f}' for a in cap['ates'])} m | "
               f"launches {cap['counts']} (eager {eager['counts']}) | capture + instantiate "
-              f"{step.capture_s:.3f} s, launches a replay {step.launches_per_replay} | run wall "
+              f"{step.capture_s[()]:.3f} s, launches a replay {step.launches_per_replay[()]} | "
+              f"run wall "
               f"{cap['wall']:.2f} s (eager {eager['wall']:.2f} s) | peak device memory "
               f"{cap['peak'] / 2**20:.1f} MiB with the graph's pool (eager "
               f"{eager['peak'] / 2**20:.1f} MiB)", flush=True)
@@ -2619,12 +2658,12 @@ def phase_graph_timing(frames, seq) -> dict:
         dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
         span_ms = (max(e.last_ns for e in dev) - min(e.first_ns for e in dev)) / 1e6
         med = {k: float(np.median(v)) for k, v in walls.items()}
-        out[S] = dict(capture_s=captured.capture_s, eager_ms=walls["eager"],
+        out[S] = dict(capture_s=captured.capture_s[()], eager_ms=walls["eager"],
                       replay_ms=walls["replay"], device_ms_step=dev_ms / CHUNK,
                       activities_step=acts / CHUNK, busy=dev_ms / span_ms,
                       peak=peak, reserved=torch.cuda.memory_reserved())
         print(f"graph timing S={S} fused, alone on the card: capture + instantiate "
-              f"{captured.capture_s:.3f} s | warm 12-frame chunk wall, 10 pairs in turns: eager "
+              f"{captured.capture_s[()]:.3f} s | warm 12-frame chunk wall, 10 pairs in turns: eager "
               f"median {med['eager']:.1f} ms ({min(walls['eager']):.1f}-{max(walls['eager']):.1f}), "
               f"replay median {med['replay']:.2f} ms ({min(walls['replay']):.2f}-"
               f"{max(walls['replay']):.2f}), {med['eager'] / med['replay']:.1f}x | replayed "
@@ -2638,10 +2677,196 @@ def phase_graph_timing(frames, seq) -> dict:
     return out
 
 
+# the ATE these runs gave on the card before their frame steps were
+# captured (the shipping path (b), the window BA's path), which the
+# captured runs must give to the digit
+EAGER_ATE_M = {"shipping (b)": 0.0904, "ba": 0.0384}
+
+
+def phase_frame_graph(kernels, frames, seq) -> dict:
+    """svo_tpu's jitted frame step (jax.jit with the state donated, its
+    lax.conds inside; svo_tpu_torch/pipeline/graph.py::FrameGraph): one
+    whole-frame graph per branch key (any stream keyframes, any runs the
+    window BA), read once a frame, against the eager step (graph=False) on
+    the same inputs, at bench.py's full width (97 frames 376x1241): (a) one
+    stream, StereoVO.run frame by frame, each engine; (b) Config() (ORB),
+    the dynamic rule inside chunks of 12, patches (the shipping path (b));
+    (c) 8 streams (even forward, odd reversed), BatchedStereoVO.process
+    frame by frame, fused; (d) ba.enabled at its defaults, one stream,
+    fused: chunks of 12 at cadence 6 (one graph per BA schedule) and frame
+    by frame. Each captured run's final state must equal the eager run's
+    leaf for leaf, bit for bit, every kernel be launched as often in both
+    and by the launch rule, every ATE stay under its limit (and equal to
+    the digit what the same run gave eagerly, EAGER_ATE_M), the keys read
+    be the same and one a frame step (one a chunk for (d)'s chunks), and
+    the BA solve at the frames its rule gives. Returns the launches of the captured
+    runs."""
+    from svo_tpu_torch.config import BaParams
+    from svo_tpu_torch.eval.trajectory import ate_rmse
+    from svo_tpu_torch.parallel.batched import BatchedStereoVO
+    from svo_tpu_torch.pipeline.odometry import StereoVO
+
+    staged = _stage_batched(frames, seq)
+    fast, cam = _config_and_camera(seq)
+    orb, _ = _config_and_camera(seq, use_orb=True)
+    ba = dataclasses.replace(fast, ba=BaParams(enabled=True))
+
+    def single(engine, graph, cfg, chunk, cadence):
+        vo = StereoVO(cfg, cam, chunk=chunk, kf_cadence=cadence, lk_engine=engine, graph=graph)
+        res = vo.run_chunked(frames) if chunk else vo.run(frames)
+        step = vo._chunk_step if cadence else vo._step
+        return vo, step, [float(ate_rmse(res.poses, seq.gt_poses))], res.kf_flags[None]
+
+    def batched(engine, graph, cfg, chunk, cadence):
+        bvo = BatchedStereoVO(cfg, cam, STREAMS, lk_engine=engine, graph=graph)
+        bvo.start(staged.l0, staged.r0)
+        for lefts, rights in staged.chunks:
+            for i in range(CHUNK):
+                bvo.process(lefts[i], rights[i])
+        n = staged.n_stepped + 1
+        ates = _stream_ates(bvo.trajectories(n), staged)
+        return bvo, bvo._step, ates, bvo.state.kf_flags[:, :n].cpu().numpy()
+
+    cases = [(f"(a) S=1 {e} frame by frame", single, e, fast, 0, 0, None) for e in ENGINES]
+    cases += [("(b) S=1 ORB dynamic chunks", single, "patches", orb, CHUNK, 0,
+               EAGER_ATE_M["shipping (b)"]),
+              (f"(c) S={STREAMS} fused frame by frame", batched, "fused", fast, 0, 0, None),
+              ("(d) S=1 ba.enabled chunks", single, "fused", ba, CHUNK, CADENCE,
+               EAGER_ATE_M["ba"]),
+              ("(d) S=1 ba.enabled frame by frame", single, "fused", ba, 0, 0, None)]
+    out = {}
+    for tag, drive, engine, cfg, chunk, cadence, eager_ate in cases:
+        run = {}
+        for graph in (False, None):
+            _zero(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _recording_keys() as keys:
+                eng, step, ates, kf = drive(engine, graph, cfg, chunk, cadence)
+            torch.cuda.synchronize()
+            run[graph] = dict(eng=eng, step=step, ates=ates, kf=kf, keys=keys,
+                              wall=time.perf_counter() - t0, counts=_counts(kernels),
+                              peak=torch.cuda.max_memory_allocated())
+        eager, cap = run[False], run[None]
+        step = cap["step"]
+        check(step.capture, f"frame graph {tag}: the default step was not captured")
+        same, dt = _state_diff(cap["eng"].state, eager["eng"].state)
+        n_kf = int(cap["kf"].any(axis=0).sum())  # steps where any stream keyframes, boot included
+        reads = len(cap["keys"]) / (N_FRAMES - 1)  # 1 a frame step; 1 a chunk with a schedule
+        limit = ORB_ATE_LIMIT_M["forward"] if cfg.use_orb else ATE_LIMIT_M
+        line = (f"frame graph {tag}, {engine}: captured against the eager step: every leaf "
+                f"bit-equal {same} | max |pose diff| {dt:.3g} m | ATE "
+                f"{' '.join(f'{a:.4f}' for a in cap['ates'])} m (limit {limit:.4f}) | keyframe "
+                f"steps {n_kf} | launches {cap['counts']} (eager {eager['counts']}) | graphs per "
+                f"key {sorted(step.graphs)}, capture + instantiate s "
+                f"{ {k: round(v, 3) for k, v in step.capture_s.items()} } | keys read "
+                f"{reads:.4f} a frame step | run wall "
+                f"{cap['wall']:.2f} s (eager {eager['wall']:.2f} s) | peak device memory "
+                f"{cap['peak'] / 2**20:.1f} MiB with the graphs' pool (eager "
+                f"{eager['peak'] / 2**20:.1f} MiB)")
+        if cfg.ba.enabled:
+            solved = _solved_frames(cap["keys"], bool(cadence))
+            due = _ba_due(cap["kf"][0], cfg)
+            line += f" | BA solves at frames {solved}, the rule gives {due}"
+            check(solved == due and len(due) >= 1, f"frame graph {tag}: BA solves at {solved}, "
+                                                   f"the rule gives {due}")
+        print(line, flush=True)
+        check(same, f"frame graph {tag}: the captured run differs from the eager step by {dt} m")
+        check(cap["keys"] == eager["keys"], f"frame graph {tag}: the keys read differ")
+        check(reads == (1 / CHUNK if cadence else 1.0),
+              f"frame graph {tag}: {len(cap['keys'])} key reads in {N_FRAMES - 1} frame steps")
+        check(cap["counts"] == eager["counts"],
+              f"frame graph {tag}: launches {cap['counts']}, eager {eager['counts']}")
+        _check_launches(f"frame graph {tag}", engine, cap["counts"], n_kf)
+        check(all(np.isfinite(a) and a <= limit for a in cap["ates"]),
+              f"frame graph {tag}: ATE {cap['ates']} m > {limit} m")
+        if eager_ate is not None:
+            check(round(cap["ates"][0], 4) == eager_ate,
+                  f"frame graph {tag}: ATE {cap['ates'][0]:.4f} m, eagerly {eager_ate} m")
+        out[tag] = cap["counts"]
+        del run, eager, cap, step
+    return out
+
+
+def phase_frame_graph_timing(frames, seq) -> dict:
+    """Readings of the captured frame step (make_step, the dynamic rule)
+    against the eager step, alone on the card, fused, one stream and 8
+    (bench.py's sequence; 8 streams even forward, odd reversed): the graphs
+    captured per key and their capture seconds; a warm 12-frame stretch
+    (frames 13-24) frame by frame, eager and replayed in turns from the
+    same saved state, 10 pairs, as frames/s; the device activities and
+    device time a frame step of a replayed stretch (profiler), against its
+    untraced wall; peak device memory with the graphs' pool."""
+    from svo_tpu_torch.pipeline import frontend
+    from svo_tpu_torch.pipeline.state import clone
+
+    out = {}
+    for S in (1, STREAMS):
+        cfg, cam = _config_and_camera(seq, "cuda")
+        streams = [frames if s % 2 == 0 else frames[::-1] for s in range(S)]
+
+        def stage(ts, k):
+            x = np.stack([np.stack([_u8(st[t][k]) for st in streams]) for t in ts])
+            return torch.from_numpy(x if S > 1 else x[:, 0]).cuda()
+
+        first = [torch.from_numpy(np.stack([st[0][k] for st in streams])).cuda() for k in (1, 2)]
+        if S == 1:
+            first = [x[0] for x in first]
+        stretches = [tuple(stage(range(1 + c * CHUNK, 1 + (c + 1) * CHUNK), k) for k in (1, 2))
+                     for c in range(2)]
+
+        def drive(step, st, stretch):
+            for left, right in zip(*stretch):
+                st = step(st, left, right)
+            return st
+
+        eager = frontend.make_step(cam, cfg, "fused", graph=False)
+        captured = frontend.make_step(cam, cfg, "fused")
+        st = frontend.make_bootstrap(cam, cfg, "fused")(*first, list(range(S)) if S > 1 else 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        saved = clone(drive(captured, st, stretches[0]))  # each key's first step, then captured
+        drive(captured, saved, stretches[1])  # a key first met here is captured before the pairs
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        walls = {"eager": [], "replay": []}
+        for _ in range(10):
+            for name, fn in (("eager", eager), ("replay", captured)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drive(fn, saved, stretches[1])
+                torch.cuda.synchronize()
+                walls[name].append(1e3 * (time.perf_counter() - t0))
+        dev = device_events(lambda: drive(captured, saved, stretches[1]))
+        acts = sum(e.count for e in dev)
+        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        fps = {k: [1e3 * S * CHUNK / w for w in v] for k, v in walls.items()}
+        out[S] = dict(keys=sorted(captured.graphs), capture_s=dict(captured.capture_s),
+                      eager_ms=walls["eager"], replay_ms=walls["replay"],
+                      device_ms_step=dev_ms / CHUNK, activities_step=acts / CHUNK, peak=peak)
+        print(f"frame graph timing S={S} fused, the dynamic rule frame by frame, alone on the "
+              f"card: graphs per key {sorted(captured.graphs)}, capture + instantiate s "
+              f"{ {k: round(v, 3) for k, v in captured.capture_s.items()} } | warm 12-frame "
+              f"stretch, 10 pairs in turns: eager median {med['eager']:.1f} ms "
+              f"({min(walls['eager']):.1f}-{max(walls['eager']):.1f}), "
+              f"{np.median(fps['eager']):.2f} frames/s; replayed median {med['replay']:.2f} ms "
+              f"({min(walls['replay']):.2f}-{max(walls['replay']):.2f}), "
+              f"{np.median(fps['replay']):.2f} frames/s{' aggregate' if S > 1 else ''}; "
+              f"{med['eager'] / med['replay']:.1f}x | replayed stretch: {acts / CHUNK:.0f} device "
+              f"activities and {dev_ms / CHUNK:.3f} ms device time a frame step, "
+              f"{dev_ms / med['replay']:.3f} of the untraced replayed wall | peak device memory "
+              f"{peak / 2**20:.1f} MiB with the graphs' pool", flush=True)
+        check(acts > 0, f"frame graph timing S={S}: the profiler saw no device activity")
+        del eager, captured, st, saved, stretches
+    return out
+
+
 def _group_single(ctx) -> dict:
     """One stream's main paths: the small agreement runs, bench.py's path
     with each engine, the window BA, the shipping configuration through
-    run_synthetic, run_kitti on the fixture."""
+    run_synthetic."""
     for engine in ENGINES:
         phase_small_agreement(engine)
     for engine in ENGINES:
@@ -2653,8 +2878,6 @@ def _group_single(ctx) -> dict:
     ctx.done("single-stream main path with the window BA")
     shipping = phase_shipping_main_path(ctx.kernels, ctx.frames, ctx.seq)
     ctx.done("shipping configuration (ORB) through run_synthetic")
-    phase_cli_fixture()
-    ctx.done("run_kitti on the KITTI fixture")
     return {"launches_single_stream": [single[e] for e in ENGINES],
             "launches_shipping_orb": [shipping["a"]["counts"], shipping["b"]["counts"]]}
 
@@ -2692,24 +2915,35 @@ def _group_batched(ctx) -> dict:
 
 def _group_long(ctx) -> dict:
     """The long runs and the tables: the soak, the worlds suite, the fleet
-    table and the EuRoC artifact, the distributed paths."""
+    table and the EuRoC artifact."""
     soak = phase_soak(ctx.kernels)
     ctx.done("soak")
     worlds = phase_worlds(ctx.kernels)
     ctx.done("worlds suite")
     tables = phase_eval_tables(ctx.kernels)
     ctx.done("fleet table and EuRoC artifact")
-    phase_distributed(ctx.frames, ctx.seq)
-    ctx.done("distributed paths")
     return {"launches_soak": [soak["counts"]], "launches_worlds": [worlds["counts"]],
             "launches_eval_tables": [tables["counts"]]}
 
 
 def _group_graph(ctx) -> dict:
-    """The captured chunk dispatch against the eager loop."""
+    """The captured chunk dispatch against the eager loop, then run_kitti
+    on the fixture."""
     graph = phase_graph(ctx.kernels, ctx.frames, ctx.seq)
     ctx.done("captured chunk dispatch against the eager loop")
+    phase_cli_fixture()
+    ctx.done("run_kitti on the KITTI fixture")
     return {"launches_graph": list(graph.values())}
+
+
+def _group_frames(ctx) -> dict:
+    """The captured frame steps (the dynamic rule, the window BA) against
+    the eager step, then the distributed paths."""
+    frame_graph = phase_frame_graph(ctx.kernels, ctx.frames, ctx.seq)
+    ctx.done("captured frame steps against the eager step")
+    phase_distributed(ctx.frames, ctx.seq)
+    ctx.done("distributed paths")
+    return {"launches_frame_graph": list(frame_graph.values())}
 
 
 def _group_tools(ctx) -> dict:
@@ -2724,11 +2958,12 @@ def _group_tools(ctx) -> dict:
 
 # The phases after the kernel checks, in worker processes that share the
 # card, started together: the phases are host-bound (the card is busy for
-# a small share of a frame step), so five run side by side in about the
+# a small share of a frame step), so six run side by side in about the
 # time of the longest. Each worker runs its phases in order, each phase
 # with its own launch counts, and writes what the kernel line needs.
 WORKER_GROUPS = {"single": _group_single, "batched": _group_batched,
-                 "long": _group_long, "tools": _group_tools, "graph": _group_graph}
+                 "long": _group_long, "tools": _group_tools, "graph": _group_graph,
+                 "frames": _group_frames}
 
 
 def _kernels() -> list:
@@ -2848,6 +3083,8 @@ def main() -> int:
     done("threefry kernel and batched streams against single streams")
     phase_graph_timing(frames, seq)
     done("captured chunk against the eager loop, timed")
+    phase_frame_graph_timing(frames, seq)
+    done("captured frame step against the eager step, timed")
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "frames.npy"), np.stack([f[1:] for f in frames]))
         del frames
@@ -2858,7 +3095,8 @@ def main() -> int:
     runs = {}
     for key in ("launches_single_stream", "launches_batched", "launches_shipping_orb",
                 "launches_soak", "launches_worlds", "launches_recovery", "launches_eval_ba",
-                "launches_eval_tables", "launches_tools", "launches_graph"):
+                "launches_eval_tables", "launches_tools", "launches_graph",
+                "launches_frame_graph"):
         runs[key] = [c for r in results.values() for c in r.get(key, ())]
     scaling_launches = results["tools"]["scaling_launches"]
 

@@ -10,13 +10,15 @@ bound by its launches, not by the card, so S streams cost about the
 launches of one.
 
 Keyframing in the chunked path is statically cadenced
-(frontend.make_cadenced_chunk_step): no step branches on data, so on the
-card the chunk is captured once as a CUDA graph and replayed (svo_tpu jits
-its vmapped chunk with the state donated). The
-per-frame `process` path keeps the reference's dynamic rule: each stream
-decides for itself, replenishment is computed for all streams and selected
-per stream (what jax.vmap makes of svo_tpu's lax.cond), and is skipped on
-frames where no stream keyframes.
+(frontend.make_cadenced_chunk_step): no step branches on the keyframe
+rule, so on the card the chunk is captured as a CUDA graph (one per window
+BA schedule with ba.enabled) and replayed (svo_tpu jits its vmapped chunk
+with the state donated). The per-frame `process` path keeps the
+reference's dynamic rule: each stream decides for itself, replenishment is
+computed for all streams and selected per stream (what jax.vmap makes of
+svo_tpu's lax.cond), and is skipped on frames where no stream keyframes;
+on the card it replays one graph per branch key (frontend.make_step, the
+counterpart of svo_tpu's jit(vmap(step_body))).
 """
 
 from __future__ import annotations
@@ -49,10 +51,11 @@ class BatchedStereoVO:
             default raises.
         lk_engine: the KLT engine of every tracker call, "patches" or
             "fused" (ops/klt.py).
-        graph: the chunked path's dispatch (frontend.make_cadenced_chunk_step):
-            by default captured once as a CUDA graph on the card and replayed
-            with the state donated (self.state is the step's own buffers
-            until the next chunk); False runs the eager loop.
+        graph: the dispatch of process_chunk and process
+            (frontend.make_cadenced_chunk_step, frontend.make_step): by
+            default captured as CUDA graphs on the card and replayed with
+            the state donated (self.state is the step's own buffers until
+            the next call); False runs the eager loop.
     """
 
     def __init__(
@@ -96,6 +99,7 @@ class BatchedStereoVO:
         self._chunk_step = frontend.make_cadenced_chunk_step(
             self.camera, cfg, chunk, kf_cadence, lk_engine, graph=graph
         )
+        self._step = frontend.make_step(self.camera, cfg, lk_engine, graph=graph)
 
     # -- driving --------------------------------------------------------
 
@@ -128,10 +132,7 @@ class BatchedStereoVO:
             raise RuntimeError("call start() first")
         self._check_shape(lefts, "lefts", False)
         self._check_shape(rights, "rights", False)
-        self.state = frontend.step_body(
-            self.state, self._f32(lefts), self._f32(rights), self.camera, self.cfg,
-            lk_engine=self.lk_engine,
-        )
+        self.state = self._step(self.state, self._f32(lefts), self._f32(rights))
 
     def process_chunk(self, lefts_u8, rights_u8):
         """A chunk of frames for every stream: (chunk, S, H, W) uint8 arrays

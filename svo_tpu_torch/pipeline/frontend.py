@@ -5,14 +5,25 @@ Port of svo_tpu/pipeline/frontend.py: one step per frame,
     track (KLT prev->curr, forward-backward check)
     -> pose (RANSAC-PnP, motion gate, purge)
     -> keyframe? replenish: detect, stereo KLT, triangulate, allocate, merge
+    -> window BA? (cfg.ba.enabled) solve the last keyframes, write back
 
 as functions of (state, images) -> state. svo_tpu's lax.scan over a chunk
-is a Python loop over frames here. The cadenced chunk step makes no host
-round trip per frame: every data-dependent choice is a torch.where, as in
-svo_tpu. So, as svo_tpu jits it with the state donated, it is captured once
-as a CUDA graph on the card and replayed over static buffers
-(pipeline/graph.py). Only kf_mode="dynamic" branches on the host, once per
-frame, and the window BA (cfg.ba.enabled) once per keyframe step.
+is a Python loop over frames here.
+
+svo_tpu takes two data-dependent branches inside its jitted step, as
+lax.cond: the dynamic keyframe rule's replenishment and the window BA.
+Both are functions of the INCOMING state alone (the keyframe rule reads
+prev_is_kf, the live feature count, frame_id and last_kf_id; the BA rule
+the keyframe flags with this frame's written in), so _branch_key computes
+them on the device before any work is done, and the step branches on
+their host values, (any stream keyframes, any stream runs the BA): one
+host read a frame (_read_key), where the branch depends on data at all.
+That key also picks the step's CUDA graph: on the card make_step and the
+cadenced chunk step replay one whole-step graph per key value over static
+buffers with the state donated, as svo_tpu jits them
+(pipeline/graph.py); graph=False is the eager loop, the parity
+reference. Within a key, every per-stream choice is a torch.where, as in
+svo_tpu.
 
 The PnP noise comes from the state's threefry key, as in svo_tpu: each step
 splits state.rng, keeps one half and draws its (hypotheses, N) Gumbel noise
@@ -27,18 +38,18 @@ raised on and never read back.
 The stream axis: svo_tpu steps S streams in lockstep with jax.vmap of this
 step. Here every function takes the state with a leading (S,) on each leaf
 and images (S, H, W), written out as leading "..." axes, so the same body
-steps one stream or S, with no loop over streams.
+steps one stream or S, with no loop over streams. Where some streams
+branch and others do not, the branch is computed for all streams and
+selected per stream (what jax.vmap makes of svo_tpu's lax.cond), and it is
+skipped when no stream takes it.
 
 The in-pipeline window BA (cfg.ba.enabled): on a keyframe step whose
 keyframe count has reached cfg.ba.window and is a multiple of
 cfg.ba.interval, solve_ba runs over the last cfg.ba.window keyframes and
-writes points and poses back. That rule is data (the count of kf_flags),
-where svo_tpu takes a lax.cond. The port reads `run_ba.any()` on the host,
-on keyframe steps only, and then solves for all streams at once and
-selects per stream. Computing and selecting on every keyframe step instead
-would cost `interval` times the solves (thousands of launches each) to
-save one read per keyframe step; with ba.enabled=False the step makes
-neither the read nor the solve.
+writes points and poses back. Computing and selecting it on every keyframe
+step instead of branching would cost `interval` times the solves
+(thousands of launches each); with ba.enabled=False the step carries no BA
+code and its key no BA flag.
 """
 
 from __future__ import annotations
@@ -58,7 +69,7 @@ from svo_tpu_torch.ops import detect as detect_mod
 from svo_tpu_torch.ops.index import scatter_drop, take_rows
 from svo_tpu_torch.ops.klt import KltTracker
 from svo_tpu_torch.ops.random import prng_key, split_gumbel
-from svo_tpu_torch.pipeline.graph import ChunkGraph
+from svo_tpu_torch.pipeline.graph import ChunkGraph, FrameGraph
 from svo_tpu_torch.pipeline.state import FeatureSet, MapState, VoState
 
 
@@ -230,6 +241,72 @@ def _window_ba(
 
 
 # --------------------------------------------------------------------------
+# the branch key
+# --------------------------------------------------------------------------
+
+def _branch_key(state: VoState, cfg: Config, kf_mode: str):
+    """The coming frame's branches, per stream, from the incoming state
+    alone, with the step's own expressions: (is_kf, kf_flags, run_ba).
+    kf_flags is the trajectory's with is_kf written at the frame's id
+    (dropped past capacity.max_frames, as the step drops it); run_ba is the
+    window BA's rule on it, None where the step carries no BA
+    (ba.enabled off, or kf_mode "never")."""
+    fid = state.frame_id + 1
+    if kf_mode == "dynamic":
+        is_kf = (~state.prev_is_kf) & (state.features.count() < cfg.tracking.features_to_track)
+        if cfg.tracking.kf_max_interval > 0:
+            is_kf = is_kf | (
+                (~state.prev_is_kf)
+                & (fid - state.last_kf_id >= cfg.tracking.kf_max_interval)
+            )
+    else:
+        is_kf = torch.full(fid.shape, kf_mode == "always", dtype=torch.bool, device=fid.device)
+    kf_flags = scatter_drop(state.kf_flags, fid[..., None], is_kf[..., None])
+    run_ba = None
+    if cfg.ba.enabled and kf_mode != "never":
+        kf_count = _count(kf_flags)
+        run_ba = is_kf & (kf_count >= cfg.ba.window) & (kf_count % cfg.ba.interval == 0)
+    return is_kf, kf_flags, run_ba
+
+
+def _read_key(flags: torch.Tensor) -> tuple:
+    """A step's one host read: (n,) bool flags -> n Python bools, in one
+    device-to-host copy."""
+    return tuple(flags.tolist())
+
+
+def _host_key(is_kf: torch.Tensor, run_ba, kf_mode: str) -> tuple[bool, bool]:
+    """(any stream keyframes, any stream runs the window BA): one read
+    where either depends on data, none where both are fixed by kf_mode."""
+    if kf_mode != "dynamic" and run_ba is None:
+        return kf_mode == "always", False
+    flags = [is_kf.any()] if run_ba is None else [is_kf.any(), run_ba.any()]
+    got = _read_key(torch.stack(flags))
+    return got[0], len(got) > 1 and got[1]
+
+
+def step_key(state: VoState, cfg: Config, kf_mode: str = "dynamic") -> tuple[bool, bool]:
+    """The branch key of the step from `state`, as host values: (any
+    stream keyframes, any stream runs the window BA)."""
+    is_kf, _, run_ba = _branch_key(state, cfg, kf_mode)
+    return _host_key(is_kf, run_ba, kf_mode)
+
+
+def _ba_schedule(state: VoState, cfg: Config, chunk: int, cadence: int) -> tuple:
+    """Whether any stream runs the window BA at each keyframe step of a
+    cadenced chunk from `state`: _branch_key frame by frame on the keyframe
+    flags alone (a cadenced step's keyframe decision needs nothing else),
+    in one host read."""
+    due = []
+    for i in range(chunk):
+        _, kf_flags, run_ba = _branch_key(state, cfg, "always" if i % cadence == 0 else "never")
+        if run_ba is not None:
+            due.append(run_ba.any())
+        state = state._replace(frame_id=state.frame_id + 1, kf_flags=kf_flags)
+    return _read_key(torch.stack(due))
+
+
+# --------------------------------------------------------------------------
 # per-frame step
 # --------------------------------------------------------------------------
 
@@ -242,8 +319,9 @@ def step_body(
     kf_mode: str = "dynamic",
     pnp_noise: torch.Tensor | None = None,
     lk_engine: str = "patches",
+    branch: tuple[bool, bool] | None = None,
 ) -> VoState:
-    """One full frame step: track -> PnP -> replenish.
+    """One full frame step: track -> PnP -> replenish -> window BA.
 
     kf_mode: "dynamic" (the reference's data-dependent keyframe rule plus
     the max-interval trigger), "never" (track only) or "always"
@@ -251,7 +329,9 @@ def step_body(
     sampling noise ((num_hypotheses, N) Gumbel) from it; `pnp_noise`, if
     given, is used in its place (the key is split all the same).
     lk_engine: the KLT engine of all three tracker calls, "patches" or
-    "fused" (ops/klt.py).
+    "fused" (ops/klt.py). branch: the step's key from this state
+    (step_key), which a caller that has read it hands in; without it the
+    step reads it itself, once, where it depends on data.
 
     With a batched state (every leaf with a leading (S,)) and images
     (S, H, W) it steps S streams at once: the keys are (S, 2), the noise
@@ -265,16 +345,10 @@ def step_body(
     fid = state.frame_id + 1
     eye4 = torch.eye(4, dtype=torch.float32, device=dev)
 
-    # keyframe policy, evaluated on the PREVIOUS frame's state
-    if kf_mode == "dynamic":
-        is_kf = (~state.prev_is_kf) & (state.features.count() < cfg.tracking.features_to_track)
-        if cfg.tracking.kf_max_interval > 0:
-            is_kf = is_kf | (
-                (~state.prev_is_kf)
-                & (fid - state.last_kf_id >= cfg.tracking.kf_max_interval)
-            )
-    else:
-        is_kf = torch.full(fid.shape, kf_mode == "always", dtype=torch.bool, device=dev)
+    # keyframe policy and the BA rule, evaluated on the PREVIOUS frame's
+    # state; the branches' host values read once (svo_tpu's lax.conds)
+    is_kf, kf_flags, run_ba = _branch_key(state, cfg, kf_mode)
+    kf_any, ba_any = branch if branch is not None else _host_key(is_kf, run_ba, kf_mode)
     last_kf_id = torch.where(is_kf, fid, state.last_kf_id)
 
     pyr_l = KltTracker.build_pyramid(left, cfg.temporal_klt.max_level)
@@ -394,32 +468,24 @@ def step_body(
         feats, mp = _replenish(
             feats, mp, left, pyr_l, right, pose, fid, camera, cfg, lk_engine
         )
-    elif kf_mode == "dynamic":
-        # The one host round trip per frame, and only in this mode (svo_tpu
-        # takes a lax.cond on device here); the cadenced chunk step never
-        # comes here. Streams that do not keyframe keep what they had.
-        kf_on_host = bool(is_kf.any())
-        if kf_on_host:
-            new_feats, new_mp = _replenish(
-                feats, mp, left, pyr_l, right, pose, fid, camera, cfg, lk_engine
-            )
-            feats = FeatureSet(*(_select(is_kf, a, b) for a, b in zip(new_feats, feats)))
-            mp = MapState(*(_select(is_kf, a, b) for a, b in zip(new_mp, mp)))
+    elif kf_mode == "dynamic" and kf_any:
+        # streams that do not keyframe keep what they had
+        new_feats, new_mp = _replenish(
+            feats, mp, left, pyr_l, right, pose, fid, camera, cfg, lk_engine
+        )
+        feats = FeatureSet(*(_select(is_kf, a, b) for a, b in zip(new_feats, feats)))
+        mp = MapState(*(_select(is_kf, a, b) for a, b in zip(new_mp, mp)))
 
     poses = scatter_drop(state.poses, fid[..., None], pose[..., None, :, :])
-    kf_flags = scatter_drop(state.kf_flags, fid[..., None], is_kf[..., None])
 
     # --- sliding-window bundle adjustment over the last cfg.ba.window
     #     KEYFRAMES, every cfg.ba.interval keyframes; track-only steps carry
     #     no BA code at all ---
-    if cfg.ba.enabled and kf_mode != "never":
-        kf_count = _count(kf_flags)
-        run_ba = is_kf & (kf_count >= cfg.ba.window) & (kf_count % cfg.ba.interval == 0)
-        if bool(run_ba.any()):  # the host read of the module docstring
-            points_ba, poses_ba = _window_ba(mp, poses, kf_flags, fid, camera, cfg)
-            mp = mp._replace(points=_select(run_ba, points_ba, mp.points))
-            poses = _select(run_ba, poses_ba, poses)
-            pose = take_rows(poses, fid[..., None])[..., 0, :, :]
+    if run_ba is not None and ba_any:
+        points_ba, poses_ba = _window_ba(mp, poses, kf_flags, fid, camera, cfg)
+        mp = mp._replace(points=_select(run_ba, points_ba, mp.points))
+        poses = _select(run_ba, poses_ba, poses)
+        pose = take_rows(poses, fid[..., None])[..., 0, :, :]
     metrics_row = torch.stack(
         [
             n_tracked.to(torch.float32),
@@ -436,7 +502,7 @@ def step_body(
         out_pyr = pyr_l
     elif kf_mode == "never":
         out_pyr = state.prev_pyramid
-    elif kf_on_host:
+    elif kf_any:
         levels, grads = pyr_l
         old_levels, old_grads = state.prev_pyramid
         out_pyr = (
@@ -465,45 +531,76 @@ def step_body(
     )
 
 
-def _check_chunk(state: VoState, lefts_u8, rights_u8) -> None:
-    """Chunk inputs must be (K, H, W) for one stream, (K, S, H, W) for a
-    batched state of S streams."""
+def _check_frames(state: VoState, left, right, lead_axes: int) -> None:
+    """Frames must be ([K,] H, W) for one stream, ([K,] S, H, W) for a
+    batched state of S streams (lead_axes: 1 with the chunk axis K)."""
     lead = tuple(state.frame_id.shape)  # () for one stream, (S,) batched
-    for name, x in (("lefts_u8", lefts_u8), ("rights_u8", rights_u8)):
-        if x.dim() != 3 + len(lead) or tuple(x.shape[1:-2]) != lead:
+    k = "K, " if lead_axes else ""
+    names = ("lefts_u8", "rights_u8") if lead_axes else ("left", "right")
+    for name, x in zip(names, (left, right)):
+        if x.dim() != 2 + lead_axes + len(lead) or tuple(x.shape[lead_axes:-2]) != lead:
             raise ValueError(
-                f"{name}: expected (K, {'S, ' if lead else ''}H, W) for a state of "
+                f"{name}: expected ({k}{'S, ' if lead else ''}H, W) for a state of "
                 f"{lead[0] if lead else 'no'} streams, got {tuple(x.shape)}"
             )
 
 
-def make_step(camera: Camera, cfg: Config, lk_engine: str = "patches"):
+def _check_frame(state: VoState, left, right) -> None:
+    _check_frames(state, left, right, 0)
+
+
+def _check_chunk(state: VoState, lefts_u8, rights_u8) -> None:
+    _check_frames(state, lefts_u8, rights_u8, 1)
+
+
+def make_step(camera: Camera, cfg: Config, lk_engine: str = "patches",
+              graph: bool | None = None):
     """Single-frame step with the data-dependent keyframe rule:
-    (state, left f32, right f32) -> state."""
+    (state, left, right) -> state, frames ([S,] H, W) float32 or uint8
+    (converted exactly).
 
-    def step(state: VoState, left, right) -> VoState:
-        return step_body(state, left, right, camera, cfg, kf_mode="dynamic",
-                         lk_engine=lk_engine)
+    graph: svo_tpu's step is jax.jit(step, donate_argnums=(0,)); its
+    counterpart is pipeline/graph.FrameGraph, one CUDA graph of the whole
+    step per branch key (no keyframe / keyframe / keyframe with the window
+    BA, each "any stream"), captured at the key's first occurrence and
+    replayed over static buffers with the state donated (the returned state
+    is the step's own buffers, valid until its next call). Each call reads
+    the key once (step_key), as the eager step does. None (the default)
+    captures on a CUDA camera and runs the same static-buffer code eagerly
+    on a CPU one; True captures and raises on the CPU; False returns the
+    eager step, which launches every op from the host and leaves the
+    caller's state alone (the parity reference)."""
 
-    return step
+    def step(state: VoState, left, right, key=None) -> VoState:
+        return step_body(state, left.to(torch.float32), right.to(torch.float32), camera, cfg,
+                         kf_mode="dynamic", lk_engine=lk_engine, branch=key)
+
+    if graph is False:
+        return step
+    return FrameGraph(step, _check_frame, camera.K.device, capture=graph,
+                      key=lambda state: step_key(state, cfg))
 
 
-def make_chunked_step(camera: Camera, cfg: Config, chunk: int, lk_engine: str = "patches"):
+def make_chunked_step(camera: Camera, cfg: Config, chunk: int, lk_engine: str = "patches",
+                      graph: bool | None = None, step=None):
     """Multi-frame step with the data-dependent keyframe rule: svo_tpu's
     lax.scan of step_body(kf_mode="dynamic") over a chunk of uint8 frames,
-    as a loop. Each frame reads its keyframe decision on the host once
-    (step_body's one host read in this mode).
+    as a loop over make_step's step (graph as there): on the card each frame
+    is one read of its key and one replay of that key's graph, the uint8
+    frame copied into the step's float32 frame. step: a make_step step to
+    loop (a caller's own, whose graphs and buffers the chunk then shares).
 
     Returns (state, lefts_u8 (K,H,W), rights_u8) -> state; a batched
     state of S streams takes (K,S,H,W) frame-major inputs."""
     if chunk < 1:
         raise ValueError(f"chunk {chunk} must be positive")
-    step = make_step(camera, cfg, lk_engine)
+    if step is None:
+        step = make_step(camera, cfg, lk_engine, graph)
 
     def run_chunk(state: VoState, lefts_u8, rights_u8) -> VoState:
         _check_chunk(state, lefts_u8, rights_u8)
         for l, r in zip(lefts_u8, rights_u8):
-            state = step(state, l.to(torch.float32), r.to(torch.float32))
+            state = step(state, l, r)
         return state
 
     return run_chunk
@@ -516,7 +613,7 @@ def make_cadenced_chunk_step(
     """Multi-frame step with a STATIC keyframe cadence: each group of
     `cadence` frames starts with one unconditional-replenish step
     (kf_mode="always") followed by cadence-1 track-only steps
-    (kf_mode="never"), so no step branches on data.
+    (kf_mode="never"), so no step branches on the keyframe rule.
 
     Returns (state, lefts_u8 (K,H,W), rights_u8) -> state;
     `chunk` must be a multiple of `cadence`. A batched state of S streams
@@ -531,29 +628,41 @@ def make_cadenced_chunk_step(
     eagerly on a CPU one; True captures and raises on the CPU; False
     returns the eager loop, which launches every op of every frame from the
     host and leaves the caller's state alone (the parity reference). With
-    cfg.ba.enabled the keyframe steps read the host (the window BA's rule),
-    which no graph can hold: None gives the eager loop and True raises."""
+    cfg.ba.enabled the chunk's branch key is its BA schedule, whether any
+    stream runs the window BA at each of its keyframe steps, read once a
+    call (_ba_schedule): one graph per schedule, and chunks of exactly
+    `chunk` frames."""
     if cadence < 1 or chunk % cadence:
         raise ValueError(f"chunk {chunk} must be a positive multiple of cadence {cadence}")
-    if cfg.ba.enabled:
-        if graph:
-            raise ValueError("graph=True: with cfg.ba.enabled the keyframe steps read the "
-                             "host, which a CUDA graph cannot hold")
-        graph = False
 
-    def run_chunk(state: VoState, lefts_u8, rights_u8) -> VoState:
-        _check_chunk(state, lefts_u8, rights_u8)
+    def run_chunk(state: VoState, lefts_u8, rights_u8, schedule=()) -> VoState:
         for i, (l, r) in enumerate(zip(lefts_u8, rights_u8)):
+            kf = i % cadence == 0
             state = step_body(
                 state, l.to(torch.float32), r.to(torch.float32), camera, cfg,
-                kf_mode="always" if i % cadence == 0 else "never",
-                lk_engine=lk_engine,
+                kf_mode="always" if kf else "never", lk_engine=lk_engine,
+                branch=(kf, kf and bool(schedule) and schedule[i // cadence]),
             )
         return state
 
+    def check(state: VoState, lefts_u8, rights_u8) -> None:
+        _check_chunk(state, lefts_u8, rights_u8)
+        if cfg.ba.enabled and lefts_u8.shape[0] != chunk:
+            raise ValueError(f"with cfg.ba.enabled a chunk is {chunk} frames, got "
+                             f"{lefts_u8.shape[0]}")
+
+    key = None
+    if cfg.ba.enabled:
+        def key(state: VoState) -> tuple:
+            return _ba_schedule(state, cfg, chunk, cadence)
+
     if graph is False:
-        return run_chunk
-    return ChunkGraph(run_chunk, _check_chunk, camera.K.device, capture=graph)
+        def eager(state: VoState, lefts_u8, rights_u8) -> VoState:
+            check(state, lefts_u8, rights_u8)
+            return run_chunk(state, lefts_u8, rights_u8, () if key is None else key(state))
+
+        return eager
+    return ChunkGraph(run_chunk, check, camera.K.device, capture=graph, key=key)
 
 
 def make_bootstrap(camera: Camera, cfg: Config, lk_engine: str = "patches"):

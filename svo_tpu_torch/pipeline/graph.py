@@ -1,49 +1,68 @@
-"""The compiled chunk dispatch: one chunk step captured once as a CUDA graph
-and replayed with its state donated.
+"""The compiled frame-loop dispatch: a step captured as CUDA graphs, one per
+value of its branch key, and replayed with its state donated.
 
-svo_tpu's make_cadenced_chunk_step returns jax.jit(run_chunk,
-donate_argnums=(0,)) (svo_tpu/pipeline/frontend.py:606): the host hands the
-device a whole chunk of frames as one program, and the state is updated in
-place. PyTorch's counterpart is a torch.cuda.CUDAGraph replayed over static
-buffers, which is what ChunkGraph holds:
+svo_tpu jits its frame loop with the state donated: the per-frame step of
+the dynamic keyframe rule, jax.jit(step, donate_argnums=(0,))
+(svo_tpu/pipeline/frontend.py:513), its vmapped form
+(svo_tpu/parallel/batched.py:93), and the cadenced chunk,
+jax.jit(run_chunk, donate_argnums=(0,)) (frontend.py:606). The host hands
+the device a frame or a chunk as one program, the data-dependent branches
+(the keyframe rule's and the window BA's lax.cond) inside it, and the state
+is updated in place. PyTorch's counterpart is a torch.cuda.CUDAGraph
+replayed over static buffers. A graph holds no branch, so the step is
+split by its branch key: a small value, a function of the incoming state
+alone, that says which branches the step takes (the frame step: whether
+any stream keyframes, whether any runs the window BA; the cadenced chunk
+with the window BA: which of its keyframe steps solve). The key is read on
+the host once a call, as the eager step reads it, and each key value has
+its own whole-step graph. That is what StepGraph holds:
 
-- static buffers: every leaf of a VoState (one stream or S) and the
-  (K, [S,] H, W) uint8 left and right frames;
-- the first call copies the caller's state and frames into them and runs
-  the chunk eagerly on them, on the step's own side stream, then copies the
-  result back into the state leaves. That run is the warm-up that
-  torch.cuda.graphs asks for (it builds and loads the kernels, fills what
-  is built lazily, such as the ORB resize matrices, and sets up cuBLAS), and
-  its result is the chunk's, so every kernel launch of the run is one of the
-  run's frames. Then it captures the chunk once, on the same stream, with
+- static buffers: every leaf of a VoState (one stream or S) and the left
+  and right frames (a frame ([S,] H, W) float32, or a chunk (K, [S,] H, W)
+  uint8);
+- each call copies the caller's state into the static leaves (every leaf
+  that already is the static buffer is skipped, as when the caller hands
+  back what the last call returned) and the frames into the static frames
+  (uint8 into float32 is exact, as .to(torch.float32)), then reads the key
+  from the static state;
+- at a key's first occurrence the step runs eagerly on the static buffers,
+  on the device's side stream for captures, and its output is copied into
+  the static leaves. That run is the warm-up torch.cuda.graphs asks for (it builds
+  and loads the kernels, fills what is built lazily, such as the ORB resize
+  matrices or the solver's cuBLAS and cuSOLVER handles), and its result is
+  the call's, so every kernel launch of it is one of the run's. Then the
+  step is captured for that key, on the same stream, with
   capture_error_mode="thread_local" (the harnesses render frames in
-  threads): run_chunk on the static leaves and frames, then the copy of its
+  threads): the step on the static leaves and frames, then the copy of its
   output leaves into the static leaves, which is the donation;
-- each later call copies the caller's state into the static leaves (every
-  leaf that already is the static buffer is skipped, as when the caller
-  hands back what the last call returned), the frames into the static
-  frames, replays the graph and returns the static state.
+- at every later occurrence of the key its graph is replayed.
+
+Memory: everything that lives from one call to the next is a static buffer,
+allocated outside every capture. So nothing in a graph's private pool is
+live between replays, and one step's graphs share one pool (about the peak
+of the largest branch), which is safe in any replay order.
 
 The donated contract, svo_tpu's: the returned state's leaves are the step's
 static buffers, valid until the next call of the same step. A caller that
 keeps a state across a call clones it (pipeline/state.clone). The caller's
-own tensors are only read. Each step holds its own buffers and its graph's
-private memory pool (about the eager run's peak); both go with the step.
+own tensors are only read. Each step holds its own buffers and pool; both
+go with the step.
 
 Launch counts: a kernel wrapper counts its launches when it runs, which a
-replay does not do. So the capture records each wrapper's count before and
+replay does not do. So a capture records each wrapper's count before and
 after, puts the count back (a capture launches nothing), and each replay
-adds what the capture recorded: a captured run counts what the eager loop
-counts.
+adds what its key's capture recorded: a captured run counts what the eager
+loop counts.
 
 On the CPU there is nothing to capture: every call runs the same
-static-buffer code eagerly, which is how the CPU tests hold it to the eager
-loop. A capture or a replay that fails raises; nothing falls back to the
-eager loop.
+static-buffer code eagerly, key read included, which is how the CPU tests
+hold it to the eager loop. A capture or a replay that fails raises; nothing
+falls back to the eager loop.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -55,6 +74,17 @@ from svo_tpu_torch.pipeline.state import VoState, leaves, unflatten
 
 # the kernel wrappers that count their launches (`.launches`)
 COUNTED = (extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel)
+
+# One side stream a device for every step's warm-ups and captures: cuBLAS
+# keeps a workspace for each stream it has run on until the process ends,
+# so a stream of each step's own would hold one more workspace a step.
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
 
 
 def _copy_into(dst: list, src: list) -> None:
@@ -76,91 +106,139 @@ def _copy_into(dst: list, src: list) -> None:
     torch._foreach_copy_([d for d, _ in pairs], srcs)
 
 
-class ChunkGraph:
-    """run_chunk (state, lefts_u8, rights_u8) -> state, captured on a CUDA
-    device and replayed over static buffers with the state donated; run
-    eagerly over the same buffers on the CPU. check(state, lefts, rights)
-    validates a call's inputs before anything is copied.
+class StepGraph:
+    """run(state, left, right, key) -> state, captured on a CUDA device as
+    one graph per key value and replayed over static buffers with the state
+    donated; run eagerly over the same buffers on the CPU.
 
-    After the first call on the card: capture_s, the host seconds of the
-    capture and the graph's instantiation; launches_per_replay, each counted
-    wrapper's launches in one replay."""
+    check(state, left, right) validates a call's inputs before anything is
+    copied. frame_dtype: the static frames' dtype. key(state) -> a hashable
+    host value (it makes the call's one host read), or None for a step that
+    never branches (one graph, no read).
 
-    def __init__(self, run_chunk, check, device, capture: bool | None = None):
+    After a key's first call on the card: capture_s[key], the host seconds
+    of its capture and instantiation; launches_per_replay[key], each counted
+    wrapper's launches in one replay. graphs: the keys captured so far."""
+
+    def __init__(self, run, check, device, frame_dtype: torch.dtype,
+                 capture: bool | None = None, key=None):
         device = torch.device(device)
         if capture is None:
             capture = device.type == "cuda"
         if capture and device.type != "cuda":
             raise ValueError(f"graph=True needs a CUDA device; the step is on {device}")
-        self._run = run_chunk
+        self._run = run
         self._check = check
+        self._key = key
+        self._frame_dtype = frame_dtype
         self.device = device
         self.capture = capture
         self.state: VoState | None = None  # the static state, once the first call made it
         self._leaves: list = []
         self._frames: tuple = ()
-        self._graph = None
-        self.capture_s = None
-        self.launches_per_replay = None
+        self._pool = None
+        self.graphs: dict = {}
+        self.capture_s: dict = {}
+        self.launches_per_replay: dict = {}
 
-    def _chunk_into_static(self) -> None:
-        """The chunk on the static buffers, its output copied into them."""
-        out = self._run(self.state, *self._frames)
+    def _step_into_static(self, key) -> None:
+        """The step on the static buffers, its output copied into them."""
+        out = self._run(self.state, *self._frames, key)
         _copy_into(self._leaves, leaves(out))
 
-    def _first(self, state: VoState, lefts, rights) -> None:
-        """Static buffers from the caller's state and frames."""
-        self._leaves = [x.clone(memory_format=torch.contiguous_format) for x in leaves(state)]
+    def _first(self, state: VoState, left, right) -> None:
+        """Static buffers shaped as the caller's state and frames (_load
+        fills them)."""
+        self._leaves = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                        for x in leaves(state)]
         self.state = unflatten(self._leaves, state)
-        self._frames = tuple(x.to(self.device, copy=True).contiguous() for x in (lefts, rights))
+        self._frames = tuple(
+            torch.empty(x.shape, dtype=self._frame_dtype, device=self.device)
+            for x in (left, right)
+        )
 
-    def _capture(self) -> None:
-        """Warm up on the static buffers (the first chunk, run eagerly on
-        the side stream), then capture one chunk on that stream."""
-        stream = torch.cuda.Stream(self.device)
+    def _load(self, state: VoState, left, right) -> None:
+        _copy_into(self._leaves, leaves(state))
+        for buf, x in zip(self._frames, (left, right)):
+            if x is buf:
+                continue
+            if x.shape != buf.shape or not (
+                    x.dtype == buf.dtype or (x.dtype == torch.uint8 and buf.dtype.is_floating_point)):
+                raise ValueError(f"frames {tuple(x.shape)} {x.dtype}: the step holds "
+                                 f"{tuple(buf.shape)} {buf.dtype}")
+            buf.copy_(x)
+
+    def _capture(self, key) -> None:
+        """Warm up on the static buffers (the call, run eagerly on the side
+        stream), then capture the step for `key` on that stream, into the
+        pool the step's other graphs use."""
+        stream = _side_stream(self.device)
         main = torch.cuda.current_stream(self.device)
         stream.wait_stream(main)
         with torch.cuda.stream(stream):
-            self._chunk_into_static()
+            self._step_into_static(key)
         main.wait_stream(stream)
         before = [f.launches for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        # no cyclic garbage collection inside the capture: a dead engine's
+        # graph destroyed by the collector there (cudaGraphExecDestroy, not
+        # permitted while this thread captures) invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                self._chunk_into_static()
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self._step_into_static(key)
         finally:
+            if collecting:
+                gc.enable()
             recorded = {f.__name__: f.launches - b for f, b in zip(COUNTED, before)}
             for f, b in zip(COUNTED, before):
                 f.launches = b
-        self.capture_s = time.perf_counter() - t0
-        self.launches_per_replay = recorded
-        self._graph = graph
+        self.capture_s[key] = time.perf_counter() - t0
+        self.launches_per_replay[key] = recorded
+        self.graphs[key] = graph
+        if self._pool is None:
+            self._pool = graph.pool()
 
-    def __call__(self, state: VoState, lefts_u8, rights_u8) -> VoState:
-        self._check(state, lefts_u8, rights_u8)
-        if self.state is None:
-            self._first(state, lefts_u8, rights_u8)
-            try:
-                if self.capture:
-                    self._capture()
-                else:
-                    self._chunk_into_static()
-            except BaseException:
+    def __call__(self, state: VoState, left, right) -> VoState:
+        self._check(state, left, right)
+        fresh = self.state is None
+        if fresh:
+            self._first(state, left, right)
+        try:
+            self._load(state, left, right)
+            key = () if self._key is None else self._key(self.state)
+            if not self.capture:
+                self._step_into_static(key)
+            elif key not in self.graphs:
+                self._capture(key)
+            else:
+                self.graphs[key].replay()
+                for f in COUNTED:
+                    f.launches += self.launches_per_replay[key][f.__name__]
+        except BaseException:
+            if fresh:
                 self.state, self._leaves, self._frames = None, [], ()
-                raise
-            return self.state
-        _copy_into(self._leaves, leaves(state))
-        for buf, x in zip(self._frames, (lefts_u8, rights_u8)):
-            if x is not buf:
-                if x.shape != buf.shape or x.dtype != buf.dtype:
-                    raise ValueError(f"frames {tuple(x.shape)} {x.dtype}: the step holds "
-                                     f"{tuple(buf.shape)} {buf.dtype}")
-                buf.copy_(x)
-        if not self.capture:
-            self._chunk_into_static()
-        else:
-            self._graph.replay()
-            for f in COUNTED:
-                f.launches += self.launches_per_replay[f.__name__]
+            raise
         return self.state
+
+
+class ChunkGraph(StepGraph):
+    """The cadenced chunk step (frontend.make_cadenced_chunk_step):
+    run_chunk(state, lefts_u8, rights_u8, key) over (K, [S,] H, W) uint8
+    frames; key: the chunk's window-BA schedule, or None with the BA off."""
+
+    def __init__(self, run_chunk, check, device, capture: bool | None = None, key=None):
+        super().__init__(run_chunk, check, device, torch.uint8, capture, key)
+
+
+class FrameGraph(StepGraph):
+    """The per-frame step of the dynamic keyframe rule (frontend.make_step):
+    step(state, left, right, key) over ([S,] H, W) frames, float32 in the
+    static buffers (uint8 frames are copied in exactly); key: (any stream
+    keyframes, any stream runs the window BA)."""
+
+    def __init__(self, step, check, device, capture: bool | None = None, key=None):
+        super().__init__(step, check, device, torch.float32, capture, key)

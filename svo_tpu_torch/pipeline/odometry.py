@@ -1,7 +1,9 @@
 """Host-side odometry driver: the sequential frame loop.
 
 Port of svo_tpu/pipeline/odometry.py::StereoVO. The host streams images to
-the device and calls the frame step; nothing is read back until finish().
+the device and calls the frame step, which reads one branch key a frame
+(the data-dependent rule) or a chunk (the window BA's schedule); nothing
+else is read back until finish().
 """
 
 from __future__ import annotations
@@ -71,14 +73,13 @@ class StereoVO:
         (frontend.make_cadenced_chunk_step; chunk must be a multiple of
         kf_cadence), with kf_cadence=0 it keeps the reference's
         data-dependent keyframe rule inside the chunk
-        (frontend.make_chunked_step, one host read a frame). process() and
-        run() use the data-dependent rule.
-        graph goes to make_cadenced_chunk_step: by default the cadenced
-        chunk is captured once as a CUDA graph on the card and replayed with
-        the state donated (self.state is then the step's own buffers until
-        the next chunk; clone what you keep), False runs the eager loop.
-        The data-dependent rule is never captured: graph=True raises there.
-        The state carries svo_tpu's PnP key, PRNGKey(seed) at start(), so
+        (frontend.make_chunked_step, through process()'s step). process() and
+        run() use the data-dependent rule (frontend.make_step).
+        graph goes to every step: by default each is captured on the card
+        as CUDA graphs, one per branch key, and replayed with the state
+        donated (self.state is then the step's own buffers until the next
+        process or chunk; clone what you keep), False runs the eager loop,
+        True raises on the CPU. The state carries svo_tpu's PnP key, PRNGKey(seed) at start(), so
         the run draws svo_tpu's noise for the same seed. lk_engine picks
         the KLT engine of every tracker call: "patches" (svo_tpu's default)
         or "fused" (ops/klt.py)."""
@@ -92,7 +93,7 @@ class StereoVO:
         self.kf_cadence = kf_cadence
         self.lk_engine = lk_engine
         self._bootstrap = frontend.make_bootstrap(self.camera, config, lk_engine)
-        self._step = frontend.make_step(self.camera, config, lk_engine)
+        self._step = frontend.make_step(self.camera, config, lk_engine, graph=graph)
         self._chunk_step = None
         if chunk and kf_cadence:
             if chunk % kf_cadence:
@@ -102,10 +103,9 @@ class StereoVO:
             self._chunk_step = frontend.make_cadenced_chunk_step(
                 self.camera, config, chunk, kf_cadence, lk_engine, graph=graph
             )
-        elif graph:
-            raise ValueError("graph=True needs the cadenced chunk step (chunk and kf_cadence)")
         elif chunk:
-            self._chunk_step = frontend.make_chunked_step(self.camera, config, chunk, lk_engine)
+            self._chunk_step = frontend.make_chunked_step(self.camera, config, chunk, lk_engine,
+                                                          step=self._step)
         self.state: VoState | None = None
 
     def _prep(self, img: np.ndarray, dtype=np.float32) -> np.ndarray:
