@@ -27,9 +27,10 @@ launches and device time per frame. Then the back-end: solve_ba,
 refine_alternate, optimize_pose_graph and refine_global on seeded fixtures
 on the card against the CPU path and twice on the card (bit-identical);
 bench.py's refined arm (8 streams, refine() every 2 chunks and at the last
-chunk) beside the same run without it, with the time and the
-device activities of one sweep in each regime; the BA throughput stage of
-bench.py; one stream with the in-pipeline window BA (ba.enabled); and a
+chunk, the refiner captured) beside the same run without it; the BA
+throughput stage of bench.py, eager and replayed; the captured refiner
+against refine_global (graph=False) in both regimes, 8 streams and one;
+one stream with the in-pipeline window BA (ba.enabled); and a
 checkpoint taken on the card after chunk 4 and resumed in a fresh engine,
 which must reproduce chunks 5-8 bit for bit. The shipping configuration
 (Config(): the ORB detector, plain PyTorch with no kernel of its own): the
@@ -48,7 +49,8 @@ the eight worlds forward and reversed as 16 batched streams (the first 49
 frames of each), both counted against the launch rule; and on
 torch.distributed, a world of one (NCCL) holding 8 BA shards against the
 single solve, refine_global_sharded against refine_global, MultiStereoVO
-against StereoVO, then two gloo processes sharing the card, bit-equal to
+against StereoVO and against its own eager steps (graph=False), then two
+gloo processes sharing the card, bit-equal to
 the world of one. Then the evaluation harnesses, each in this process:
 svo_tpu_torch.eval_recovery (drift injected into a live 97-frame run; the
 back-end's aggressive regime must fire, be accepted and recover it),
@@ -68,16 +70,20 @@ card a rank where there are two, else both ranks sharing cuda:0): the
 launch rule), and with two cards the distributed BA at its sweep's first
 point, 1 process against 2 (ranks bit-equal, arms within 1e-3).
 
-svo_tpu jits its frame loop with the state donated, its data-dependent
-branches (the dynamic keyframe rule, the window BA) inside as lax.cond;
-the port captures each step as CUDA graphs, one per branch key read once a
-call, and replays them (pipeline/graph.py), the default on the card, so
-every engine above runs captured: the cadenced chunks, the frame steps of
-the dynamic rule, the window BA. phase_graph_timing and
+svo_tpu jits its frame loop and its back-end with the state donated, its
+data-dependent branches (the dynamic keyframe rule, the window BA, the
+refiner's regime) inside as lax.cond; the port captures each step as CUDA
+graphs, one per branch key read once a call, and replays them
+(pipeline/graph.py), the default on the card, so every engine above runs
+captured: the cadenced chunks, the frame steps of the dynamic rule, the
+window BA, the refine sweeps. phase_graph_timing and
 phase_frame_graph_timing read, alone on the card, the captures' seconds,
 a warm chunk's or 12-frame stretch's wall eager against replayed in turns,
 a replayed step's device time, and the peak memory with the graphs'
-pool; phase_graph holds the captured cadenced runs against the eager loop
+pool; phase_refine_graph_timing the refined arm's peak memory and the
+refiner's capture seconds, then a healthy and an aggressive 8-stream
+sweep and bench.py's LM solve, eager against replayed in turns, with
+device activities, device time and the busy share; phase_graph holds the captured cadenced runs against the eager loop
 (graph=False) at bench.py's configuration, one stream and 8 with each
 engine and Config() (ORB) for one stream, and phase_frame_graph the
 captured frame steps (one stream frame by frame with each engine, the
@@ -87,7 +93,7 @@ same launches, by the launch rule, one key read a frame step, the BA's
 solves where its rule says.
 
 The kernel checks and times, the batched-against-single check and the
-graphs' timing run first, alone on the card. The phases after them run in
+three graph timings run first, alone on the card. The phases after them run in
 six worker processes of this script (`--worker <group>`,
 WORKER_GROUPS), started together on the one card and each running its
 phases in order; a
@@ -1135,7 +1141,7 @@ def phase_main_path(kernels, frames, seq) -> tuple[dict, dict]:
     return launches, ates
 
 
-def _stage_batched(frames, seq) -> SimpleNamespace:
+def _stage_batched(frames, seq, tag: str = "batched main path") -> SimpleNamespace:
     """bench.py's batched inputs on the card: 8 streams on its sequence
     (even streams forward, odd streams reversed), the first frames as f32
     and every chunk of 12 frames staged as uint8, frame-major."""
@@ -1156,7 +1162,7 @@ def _stage_batched(frames, seq) -> SimpleNamespace:
     n_chunks = (N_FRAMES - 1) // CHUNK
     chunks = [stage(range(1 + c * CHUNK, 1 + (c + 1) * CHUNK)) for c in range(n_chunks)]
     staged = sum(t.numel() for c in chunks for t in c)
-    print(f"batched main path: {S} streams x {N_FRAMES} frames, {n_chunks} chunks of {CHUNK} "
+    print(f"{tag}: {S} streams x {N_FRAMES} frames, {n_chunks} chunks of {CHUNK} "
           f"staged on the card, {staged / 2**20:.1f} MiB uint8")
     return SimpleNamespace(cfg=cfg, cam=cam, gts=gts, l0=l0, r0=r0, stage=stage, chunks=chunks,
                            n_stepped=n_chunks * CHUNK)
@@ -1412,35 +1418,47 @@ def phase_backend_agreement() -> None:
         held(tag, readings)
 
 
-def _sweep_readings(tag: str, refine, state) -> dict:
-    """One refine sweep from `state` (not advanced): wall ms between CUDA
-    events (median of 5; the sweep ends in a host read, so this is its
-    whole time), device activities and device time from the profiler."""
-    ms = median_ms(lambda: refine(state), reps=5, inner=1)
-    dev = device_events(lambda: refine(state))
-    acts = sum(e.count for e in dev)
-    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    check(acts > 0, f"{tag}: the profiler saw no device activity")
-    accepted = refine(state)[1].cpu().numpy()
-    print(f"refine sweep, {tag}: {ms:.2f} ms a sweep for {STREAMS} streams (CUDA events) | "
-          f"{acts} device activities | {dev_ms:.2f} ms device time | device busy share "
-          f"{dev_ms / ms:.3f} | accepted {accepted.astype(int).tolist()}")
-    return dict(ms=ms, activities=acts, device_ms=dev_ms)
+# the refined arm's per-stream ATEs on an NVIDIA H100 80GB HBM3 (700 W) with
+# the refiner run eagerly and the chunks replayed (two runs, the same to the
+# digit), taken before the package preferred cuSOLVER for torch.linalg, with
+# torch's default backend (MAGMA for the batched solves). They are printed
+# beside the captured refiner's as a reading, with whether the two agree to
+# the digit, and are not checked: the captured refiner is held bit-equal to
+# the eager one, under the same backend, sweep by sweep in phase_refine_graph
+EAGER_REFINER_ATE_M = (0.0421, 0.0742, 0.0424, 0.0752, 0.0415, 0.0721, 0.0413, 0.0756)
+
+
+def _bent(state, F: int):
+    """The state with every stream's last 20 frames (of F) bent by a
+    growing yaw and side slip: the spans leave their map behind, the
+    aggressive regime."""
+    k = torch.arange(1, 21, dtype=torch.float32, device="cuda")
+    bend = torch.eye(4, device="cuda").repeat(20, 1, 1)
+    bend[:, 0, 0] = bend[:, 2, 2] = torch.cos(0.004 * k)
+    bend[:, 0, 2] = torch.sin(0.004 * k)
+    bend[:, 2, 0] = -torch.sin(0.004 * k)
+    bend[:, 0, 3] = 0.02 * k
+    poses = state.poses.clone()
+    poses[:, F - 20: F] = poses[:, F - 20: F] @ bend
+    return state._replace(poses=poses, pose=poses[:, F - 1])
 
 
 def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
     """bench.py's refined arm at full width: 8 streams, 376x1241, 97 frames,
     chunk 12, cadence 6, the fused engine, refine() (span 22, the defaults)
-    every 2 chunks and at the last chunk inside the timed loop; beside it
-    the same run without refine() in this call: `without`, the batched main
-    path's fused run (frames/s and per-stream ATEs; a second unrefined run
-    here would repeat it, so it was cut for the script's time), after a
+    every 2 chunks and at the last chunk inside the timed loop, the chunks
+    and the sweeps replayed (the refiner captured at its first sweep); beside
+    it the same run without refine() in this call: `without`, the batched
+    main path's fused run (frames/s and per-stream ATEs; a second unrefined
+    run here would repeat it, so it was cut for the script's time), after a
     warm-up of one chunk and one sweep as bench.py.
-    Every stream's refined ATE must stay under the limit and the state
-    finite; refine() must leave the kernels' launch count what it was.
-    Then one sweep alone: from the final (healthy) state, and from that
-    state with every stream's last 20 poses bent by a growing yaw and side
-    slip (the aggressive regime). Returns the engine after a refined run."""
+    Every stream's refined ATE must stay under the limit (printed beside
+    the eager refiner's earlier readings, EAGER_REFINER_ATE_M, a reading
+    and not a check) and the state finite;
+    refine() must leave the kernels' launch count what it was. Then the
+    final state with every stream's last 20 poses bent by a growing yaw
+    and side slip must be in the aggressive regime in every stream.
+    Returns the engine after the refined run."""
     from svo_tpu_torch.parallel.batched import BatchedStereoVO
 
     S, n_stepped = STREAMS, staged.n_stepped
@@ -1465,12 +1483,17 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
     warm.start(staged.l0, staged.r0)
     warm.process_chunk(*staged.chunks[0])
     warm.refine()
+    del warm
 
     fps = {False: [without["fps"]], True: []}
     ates = {False: without["ates"]}
+    staged_mib = sum(t.numel() for c in staged.chunks for t in c) / 2**20
     for turn, refine in enumerate((True,), start=1):
         _zero(kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         bvo, wall, verdicts = drive(refine)
+        peak = torch.cuda.max_memory_allocated() / 2**20
         counts = _counts(kernels)
         trajs = bvo.trajectories(n_stepped + 1)
         check(all(bool(torch.isfinite(x).all()) for x in _leaves(bvo.state)
@@ -1485,6 +1508,13 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
         if refine:
             line += " | accepted per sweep " + " ".join(
                 "".join(str(int(v)) for v in acc) for acc in verdicts)
+            graph = bvo.refiner.graph
+            line += (f" | refiner captured: graphs {sorted(graph.graphs)}, capture + instantiate s "
+                     f"{ {k: round(v, 3) for k, v in graph.capture_s.items()} } | peak device "
+                     f"memory {peak:.1f} MiB in this worker ({staged_mib:.1f} MiB of it the "
+                     f"staged chunks)")
+            check(sorted(graph.graphs) == ["aggressive", "healthy", "pre"],
+                  f"the refiner's graphs: {sorted(graph.graphs)}")
             n_chunks = len(staged.chunks)  # the terminal flush adds a sweep to an odd count
             check(len(verdicts) == n_chunks // REFINE_EVERY + (n_chunks % REFINE_EVERY > 0),
                   f"{len(verdicts)} sweeps")
@@ -1494,7 +1524,10 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
             check(np.isfinite(a) and a <= ATE_LIMIT_M,
                   f"refined arm turn {turn}: stream {s} ATE {a} m > {ATE_LIMIT_M} m")
     with_, without = float(np.mean(fps[True])), float(np.mean(fps[False]))
-    print(f"refined arm: per-stream ATE refined {' '.join(f'{a:.4f}' for a in ates[True])} m beside "
+    same = [round(a, 4) for a in ates[True]] == list(EAGER_REFINER_ATE_M)
+    print(f"refined arm: per-stream ATE refined, refiner captured, "
+          f"{' '.join(f'{a:.4f}' for a in ates[True])} m beside the eager refiner's "
+          f"{' '.join(f'{a:.4f}' for a in EAGER_REFINER_ATE_M)} m (to the digit: {same}) and "
           f"unrefined {' '.join(f'{a:.4f}' for a in ates[False])} m in this call (limit "
           f"{ATE_LIMIT_M}; the TPU package's BENCH_r05.json, an accuracy reference: 0.0391-0.0968 "
           f"refined, 0.0444-0.0949 unrefined) | aggregate frames/s with refine "
@@ -1502,21 +1535,10 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
           f"{' / '.join(f'{f:.3f}' for f in fps[False])}: {with_ / without:.3f} of without "
           f"(one turn each: inside the host's spread)")
 
-    state = refined_bvo.state
-    healthy = _sweep_readings("healthy spans", refined_bvo._refine, state)
-    # drift: the last 20 frames of every stream leave the map behind
-    F = n_stepped + 1
-    k = torch.arange(1, 21, dtype=torch.float32, device="cuda")
-    bend = torch.eye(4, device="cuda").repeat(20, 1, 1)
-    bend[:, 0, 0] = bend[:, 2, 2] = torch.cos(0.004 * k)
-    bend[:, 0, 2] = torch.sin(0.004 * k)
-    bend[:, 2, 0] = -torch.sin(0.004 * k)
-    bend[:, 0, 3] = 0.02 * k
-    poses = state.poses.clone()
-    poses[:, F - 20: F] = poses[:, F - 20: F] @ bend
-    drifted = state._replace(poses=poses, pose=poses[:, F - 1])
     from svo_tpu_torch.parallel.global_opt import refine_global
 
+    F = n_stepped + 1
+    drifted = _bent(refined_bvo.state, F)
     res = refine_global(drifted.map, drifted.poses, drifted.frame_id, refined_bvo.camera.K,
                         refined_bvo.camera.K[0, 0] * refined_bvo.camera.baseline)
     regime = (res.cost_per_obs > 10.0).tolist()
@@ -1528,17 +1550,79 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
           f"{' '.join(f'{a:.3f}' for a in bent_ates)} -> refined "
           f"{' '.join(f'{a:.3f}' for a in back_ates)} m | accepted "
           f"{res.accepted.int().tolist()}")
-    aggressive = _sweep_readings("drifted spans (aggressive regime)", refined_bvo._refine, drifted)
-    check(aggressive["activities"] > healthy["activities"],
-          "the aggressive regime ran no more than the conservative one")
     return refined_bvo
+
+
+def phase_refine_graph(kernels, bvo) -> None:
+    """svo_tpu's jitted, donated refiner (jax.jit(_refine,
+    donate_argnums=(0,)); global_opt.make_refine_global): the conservative
+    stage as one graph, the regime read once, one graph per regime, both
+    captured at the first call; against refine_global (graph=False) on the
+    same inputs, on the refined arm's final state (healthy in every stream)
+    and on it with every stream's last 20 poses bent (aggressive in every
+    stream): for S=8 (healthy first, then aggressive, then healthy again,
+    replayed) and for stream 0 alone (S=1, aggressive first). Every leaf of
+    each result bit-equal; one regime read a sweep, the read the only host
+    sync of a replayed sweep (torch's sync debug mode); no counted kernel
+    launched; the capture seconds of each graph."""
+    from unittest import mock
+
+    from svo_tpu_torch.parallel import global_opt
+    from svo_tpu_torch.parallel.global_opt import make_refine_global
+    from svo_tpu_torch.pipeline.state import clone, unstack
+
+    K = bvo.camera.K
+    bfx = K[0, 0] * bvo.camera.baseline
+    F = int(bvo.state.frame_id[0]) + 1
+    healthy = clone(bvo.state)
+    drifted = _bent(healthy, F)
+    eager = make_refine_global(K, bfx, graph=False)
+    one = [unstack(st)[0] for st in (healthy, drifted)]
+    for S, order in ((STREAMS, [healthy, drifted, healthy]), (1, [one[1], one[0]])):
+        captured = make_refine_global(K, bfx)
+        _zero(kernels)
+        met = set()
+        with mock.patch.object(global_opt, "_read_regime", wraps=global_opt._read_regime) as read:
+            for i, st in enumerate(order):
+                args = (st.map, st.poses, st.frame_id)
+                n_before = read.call_count
+                got = captured(*args)
+                torch.cuda.synchronize()
+                sweep_reads = read.call_count - n_before
+                want = eager(*args)
+                same = _bit_equal(got, want)
+                aggressive = (want.cost_per_obs > 10.0).reshape(-1).tolist()
+                regime = "aggressive" if any(aggressive) else "healthy"
+                met.add(regime)
+                print(f"refine graph S={S}, sweep {i + 1} ({regime}"
+                      f"{', the first call: every graph captured' if i == 0 else ', replayed'}): "
+                      f"bit-equal to refine_global in every leaf {same} | regime reads {sweep_reads} "
+                      f"| streams aggressive {sum(aggressive)} of {len(aggressive)} | accepted "
+                      f"{want.accepted.int().reshape(-1).tolist()}")
+                check(same, f"refine graph S={S} sweep {i + 1}: differs from refine_global")
+                check(sweep_reads == 1, f"refine graph S={S}: {sweep_reads} regime reads a sweep")
+        check(met == {"healthy", "aggressive"}, f"refine graph S={S}: regimes met {met}")
+        syncs = _host_syncs(lambda: captured(*args))
+        check(syncs == 1, f"refine graph S={S}: {syncs} host syncs in a replayed sweep, expected 1")
+        counts = _counts(kernels)
+        check(not any(counts.values()), f"the refiner launched counted kernels: {counts}")
+        graph = captured.graph
+        print(f"refine graph S={S}: graphs {sorted(graph.graphs)}, capture + instantiate s "
+              f"{ {k: round(v, 3) for k, v in graph.capture_s.items()} } | host syncs in a "
+              f"replayed sweep {syncs} | counted kernel launches {counts}")
+        check(sorted(graph.graphs) == ["aggressive", "healthy", "pre"],
+              f"refine graph S={S}: graphs {sorted(graph.graphs)}")
+        del captured, graph
 
 
 def phase_ba_throughput(bvo) -> None:
     """bench.py's BA stage: solve_ba, 10 LM iterations, on the window of the
     last 10 frames (1024 point slots, 4096 observation slots) extracted
-    from stream 0's live map after the refined run; 20 repetitions."""
-    from svo_tpu_torch.ba.solver import solve_ba
+    from stream 0's live map after the refined run; 20 repetitions, eager
+    and replayed (make_solve_ba: one graph, bit-equal to solve_ba; in this
+    worker, beside the others on the card: phase_refine_graph_timing reads
+    both alone)."""
+    from svo_tpu_torch.ba.solver import make_solve_ba, solve_ba
     from svo_tpu_torch.ba.window import extract_window
     from svo_tpu_torch.pipeline.state import unstack
 
@@ -1547,22 +1631,29 @@ def phase_ba_throughput(bvo) -> None:
     problem, _ = extract_window(st0.map, st0.poses, st0.frame_id, n_cams=10, n_points=1024, n_obs=4096)
     K = bvo.camera.K
     bfx = K[0, 0] * bvo.camera.baseline
-    res = solve_ba(problem, K, bfx, iterations=iters)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        res = solve_ba(problem, K, bfx, iterations=iters)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    captured = make_solve_ba(K, bfx, iterations=iters)
+    rates = {}
+    for name, solve in (("eager", lambda p: solve_ba(p, K, bfx, iterations=iters)),
+                        ("replayed", captured)):
+        res = solve(problem)  # warm-up (the capture)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            res = solve(problem)
+        torch.cuda.synchronize()
+        rates[name] = iters * reps / (time.perf_counter() - t0)
+    same = _bit_equal(captured(problem), solve_ba(problem, K, bfx, iterations=iters))
     dev = device_events(lambda: solve_ba(problem, K, bfx, iterations=iters))
     acts = sum(e.count for e in dev)
     dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
     check(bool(torch.isfinite(res.cost)) and float(res.cost) <= float(res.cost0),
           "BA throughput: the solve did not lower a finite cost")
-    print(f"BA throughput: {iters * reps / wall:.1f} LM iterations/s | {1e3 * wall / reps:.2f} ms a "
-          f"solve of {iters} iterations | window of {int(problem.obs_valid.sum())} valid "
+    check(same, "BA throughput: the replayed solve differs from solve_ba")
+    print(f"BA throughput: {rates['eager']:.1f} LM iterations/s eager, {rates['replayed']:.1f} "
+          f"replayed (bit-equal {same}; capture + instantiate {captured.graph.capture_s[()]:.3f} s) "
+          f"| window of {int(problem.obs_valid.sum())} valid "
           f"observations, {int(problem.pnt_valid.sum())} points, {int(problem.cam_valid.sum())} "
-          f"cameras | cost {float(res.cost0):.1f} -> {float(res.cost):.1f} | {acts / iters:.0f} "
+          f"cameras | cost {float(res.cost0):.1f} -> {float(res.cost):.1f} | eager: {acts / iters:.0f} "
           f"device activities and {dev_ms / iters:.3f} ms device time an iteration")
 
 
@@ -2325,7 +2416,8 @@ def phase_distributed(frames, seq) -> dict:
     tests/test_dist_ba.py's bounds); refine_global_sharded (4 blocks)
     against refine_global on a drifted span (poses 1e-4, ATE 1e-3:
     tests/test_global_opt.py's bounds); MultiStereoVO against StereoVO with
-    the same seed on 13 frames of the sequence, bit-equal. Then two gloo
+    the same seed on 13 frames of the sequence, bit-equal, and its eager
+    steps (graph=False) against its captured ones, bit-equal. Then two gloo
     ranks, each a process holding 4 of the 8 shards with the solve on the
     card (the gloo exchange passes through host memory on every call,
     parallel/collective.py): both must report their shards bit-equal to the
@@ -2391,17 +2483,26 @@ def phase_distributed(frames, seq) -> dict:
 
         cfg, cam = _config_and_camera(seq)
         n_ms = 13
-        multi = MultiStereoVO(cfg, cam, device="cuda")
-        multi.start(frames[0][1][None], frames[0][2][None], seed=5)
-        for f in frames[1:n_ms]:
-            multi.process(f[1][None], f[2][None])
+        fleet = {}
+        for graph in (None, False):
+            multi = MultiStereoVO(cfg, cam, device="cuda", graph=graph)
+            multi.start(frames[0][1][None], frames[0][2][None], seed=5)
+            health = []
+            for f in frames[1:n_ms]:
+                multi.process(f[1][None], f[2][None])
+                health.append(multi.fleet_health)
+            fleet[graph] = (multi.trajectories(n_ms), np.stack(health))
         lone = StereoVO(cfg, cam, seed=5, device="cuda").run(frames[:n_ms])
-        same = np.array_equal(multi.trajectories(n_ms)[0], lone.poses)
+        same = np.array_equal(fleet[None][0][0], lone.poses)
+        eager_same = all(np.array_equal(a, b) for a, b in zip(fleet[None], fleet[False]))
         print(f"MultiStereoVO, world of one, {n_ms} frames 376x1241 against StereoVO(seed=5): "
-              f"bit-equal {same} | fleet health {multi.fleet_health.tolist()}")
+              f"bit-equal {same} | fleet health {fleet[None][1][-1].tolist()} | its eager steps "
+              f"(graph=False) against its captured ones: trajectories and fleet health of every "
+              f"step bit-equal {eager_same}")
         check(same, "MultiStereoVO's stream differs from StereoVO with the same seed")
-        check(np.array_equal(multi.fleet_health, lone.metrics[n_ms - 1]),
+        check(np.array_equal(fleet[None][1][-1], lone.metrics[n_ms - 1]),
               "fleet_health of a world of one is not its stream's metrics row")
+        check(eager_same, "MultiStereoVO(graph=False) differs from its captured run")
         one_T, one_pts = one.T_cw.cpu().numpy(), one.points.cpu().numpy()
     finally:
         dist.destroy_process_group()
@@ -2863,6 +2964,151 @@ def phase_frame_graph_timing(frames, seq) -> dict:
     return out
 
 
+def phase_refine_graph_timing(frames, seq) -> dict:
+    """Readings of the captured back-end against the eager one, alone on
+    the card: bench.py's refined arm (8 streams fused, chunks and sweeps
+    replayed, refine() every 2 chunks and at the last) run once for its
+    final state, with the peak device memory of the run (the staged chunks,
+    the chunk graph's pool and the refiner's included) and the refiner's
+    capture seconds by graph, then again, every graph captured, 3 pairs in
+    turns with the same run without refine(), as aggregate frames/s; then
+    one sweep in each regime from one saved
+    state (the final state, healthy; the same bent as phase_refined_main_path
+    bends it, aggressive), eager (refine_global) and replayed in turns, 10
+    pairs: wall (host clock around a synchronised sweep), device activities
+    and device time of one sweep (profiler), and the busy share, device time
+    over the median untraced wall; last bench.py's BA stage (solve_ba, 10 LM
+    iterations, stream 0's window of the last 10 frames), eager and
+    replayed (make_solve_ba) in turns, 10 pairs, as LM iterations/s, with
+    the device time an iteration of each."""
+    from svo_tpu_torch.ba.solver import make_solve_ba, solve_ba
+    from svo_tpu_torch.ba.window import extract_window
+    from svo_tpu_torch.parallel.batched import BatchedStereoVO
+    from svo_tpu_torch.parallel.global_opt import make_refine_global
+    from svo_tpu_torch.pipeline.state import clone, unstack
+
+    staged = _stage_batched(frames, seq, "refine graph timing")
+    staged_mib = sum(t.numel() for c in staged.chunks for t in c) / 2**20
+    bvo = BatchedStereoVO(staged.cfg, staged.cam, STREAMS, chunk=CHUNK, kf_cadence=CADENCE,
+                          lk_engine="fused")
+    bvo.make_refiner()
+    bvo.start(staged.l0, staged.r0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i, c in enumerate(staged.chunks):
+        bvo.process_chunk(*c)
+        if (i + 1) % REFINE_EVERY == 0 or i == len(staged.chunks) - 1:
+            bvo.refine()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    graph = bvo.refiner.graph
+    print(f"refine graph timing: the refined arm, 8 streams, {run_s:.2f} s with every capture | "
+          f"refiner graphs {sorted(graph.graphs)}, capture + instantiate s "
+          f"{ {k: round(v, 3) for k, v in graph.capture_s.items()} } | peak device memory "
+          f"{peak:.1f} MiB allocated ({staged_mib:.1f} MiB of it the staged chunks), "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved", flush=True)
+    K = bvo.camera.K
+    bfx = K[0, 0] * bvo.camera.baseline
+    healthy = clone(bvo.state)
+    drifted = _bent(healthy, staged.n_stepped + 1)
+
+    def run(refine: bool) -> float:
+        """The whole run again on the same engine, every graph captured."""
+        bvo.start(staged.l0, staged.r0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, c in enumerate(staged.chunks):
+            bvo.process_chunk(*c)
+            if refine and ((i + 1) % REFINE_EVERY == 0 or i == len(staged.chunks) - 1):
+                bvo.refine()
+        torch.cuda.synchronize()
+        return STREAMS * staged.n_stepped / (time.perf_counter() - t0)
+
+    fps = {True: [], False: []}
+    for _ in range(3):
+        for refine in (True, False):
+            fps[refine].append(run(refine))
+    print(f"refine graph timing: the refined arm replayed (chunks and sweeps), 3 pairs in turns "
+          f"with the same run without refine(): aggregate frames/s "
+          f"{' '.join(f'{f:.2f}' for f in fps[True])} with, "
+          f"{' '.join(f'{f:.2f}' for f in fps[False])} without", flush=True)
+    del staged
+    eager = make_refine_global(K, bfx, graph=False)
+    fns = {"eager": eager, "replay": bvo.refiner}
+    out = dict(peak_mib=peak, staged_mib=staged_mib, capture_s=dict(graph.capture_s), fps=fps)
+
+    def pairs(fns, args):
+        walls = {k: [] for k in fns}
+        for _ in range(10):
+            for name, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                walls[name].append(1e3 * (time.perf_counter() - t0))
+        return walls
+
+    for regime, st in (("healthy", healthy), ("aggressive", drifted)):
+        args = (st.map, st.poses, st.frame_id)
+        check(bool((eager(*args).cost_per_obs > 10.0).any()) == (regime == "aggressive"),
+              f"refine graph timing: the {regime} state is not in that regime")
+        walls = pairs(fns, args)
+        row = {}
+        for name, fn in fns.items():
+            dev = device_events(lambda: fn(*args))
+            acts = sum(e.count for e in dev)
+            dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+            med = float(np.median(walls[name]))
+            row[name] = dict(walls_ms=walls[name], activities=acts, device_ms=dev_ms,
+                             busy=dev_ms / med)
+            check(acts > 0, f"refine graph timing: no device activity in a {name} sweep")
+        e, r = row["eager"], row["replay"]
+        me, mr = (float(np.median(walls[k])) for k in ("eager", "replay"))
+        print(f"refine graph timing, {regime} sweep, 8 streams, 10 pairs in turns, alone on the "
+              f"card: eager median {me:.2f} ms ({min(walls['eager']):.2f}-{max(walls['eager']):.2f}), "
+              f"{e['activities']} device activities, {e['device_ms']:.2f} ms device time, busy "
+              f"{e['busy']:.3f} | replayed median {mr:.2f} ms ({min(walls['replay']):.2f}-"
+              f"{max(walls['replay']):.2f}), {r['activities']} device activities, "
+              f"{r['device_ms']:.2f} ms device time, busy {r['busy']:.3f} | {me / mr:.1f}x",
+              flush=True)
+        out[regime] = row
+    for name in fns:
+        check(out["aggressive"][name]["activities"] > out["healthy"][name]["activities"],
+              f"refine graph timing: the aggressive regime ran no more than the conservative "
+              f"one ({name})")
+
+    iters = 10
+    st0 = unstack(healthy)[0]
+    problem, _ = extract_window(st0.map, st0.poses, st0.frame_id, n_cams=10, n_points=1024,
+                                n_obs=4096)
+    captured = make_solve_ba(K, bfx, iterations=iters)
+    solves = {"eager": lambda p: solve_ba(p, K, bfx, iterations=iters), "replay": captured}
+    same = _bit_equal(captured(problem), solves["eager"](problem))  # the capture, then a check
+    check(same, "refine graph timing: the replayed solve differs from solve_ba")
+    walls = pairs(solves, (problem,))
+    rates = {}
+    for name, fn in solves.items():
+        dev = device_events(lambda: fn(problem))
+        acts = sum(e.count for e in dev)
+        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        rates[name] = dict(lm_per_s=[1e3 * iters / w for w in walls[name]],
+                           activities_iter=acts / iters, device_ms_iter=dev_ms / iters)
+    print(f"refine graph timing, bench.py's BA stage (solve_ba, {iters} LM iterations, "
+          f"{int(problem.obs_valid.sum())} observations), 10 pairs in turns: "
+          + " | ".join(f"{name} median {np.median(v['lm_per_s']):.1f} LM iterations/s "
+                       f"({min(v['lm_per_s']):.1f}-{max(v['lm_per_s']):.1f}), "
+                       f"{v['activities_iter']:.0f} device activities and "
+                       f"{v['device_ms_iter']:.3f} ms device time an iteration"
+                       for name, v in rates.items())
+          + f" | capture + instantiate {captured.graph.capture_s[()]:.3f} s | bit-equal {same}",
+          flush=True)
+    out["solve_ba"] = rates
+    del bvo, fns, eager, captured
+    return out
+
+
 def _group_single(ctx) -> dict:
     """One stream's main paths: the small agreement runs, bench.py's path
     with each engine, the window BA, the shipping configuration through
@@ -2899,6 +3145,8 @@ def _group_batched(ctx) -> dict:
     refined_bvo = phase_refined_main_path(ctx.kernels, staged, batched_runs["fused"])
     phase_ba_throughput(refined_bvo)
     ctx.done("refined batched main path and BA throughput")
+    phase_refine_graph(ctx.kernels, refined_bvo)
+    ctx.done("captured refiner against refine_global")
     del refined_bvo
     phase_checkpoint(staged)
     ctx.done("checkpoint and resume")
@@ -3085,6 +3333,8 @@ def main() -> int:
     done("captured chunk against the eager loop, timed")
     phase_frame_graph_timing(frames, seq)
     done("captured frame step against the eager step, timed")
+    phase_refine_graph_timing(frames, seq)
+    done("captured back-end against the eager one, timed")
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "frames.npy"), np.stack([f[1:] for f in frames]))
         del frames

@@ -21,5 +21,14 @@ import torch as _torch
 # default to TF32 on the card).
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# The back-end's batched dense solves (torch.linalg.solve_ex: the blocks'
+# Schur systems, 4 blocks x S at 42x42, the 22-node pose graph at 132x132
+# x S) are captured in CUDA graphs. torch's default linalg backend hands a
+# batch of more than 16 systems, or systems past 128 rows, to MAGMA, whose
+# batched LU cannot be captured; cuSOLVER's preference keeps them on
+# cuBLAS's batched LU (cusolver for a single system), which can. Eager
+# calls take the same library, so a captured solve is the eager one.
+if _torch.version.cuda is not None:  # a CPU-only build has no cuSOLVER to prefer
+    _torch.backends.cuda.preferred_linalg_library("cusolver")
 
 from svo_tpu_torch.config import Config, load_config  # noqa: E402,F401

@@ -27,6 +27,9 @@ either way. The port sorts each key table once per solve (the keys do not
 change over the iterations) and sums sorted runs (ops/index.segment_sum):
 bit-identical from call to call, at the price of three stable sorts a
 solve and one gather per sum.
+
+The solvers make no host read, so a solve is one CUDA graph on the card:
+make_solve_ba (CapturedSolve), the counterpart of svo_tpu's jitted solve.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from svo_tpu_torch.geometry import se3
 from svo_tpu_torch.ops.index import segment_sum, segments, take_rows
 from svo_tpu_torch.ops.linalg import inv3x3
 from svo_tpu_torch.parallel.collective import sum_over_shards
+from svo_tpu_torch.pipeline.graph import StepGraph
 from svo_tpu_torch.pipeline.state import tensor
 
 
@@ -305,6 +309,44 @@ def solve_ba(
         n_obs = over_shards(torch.sum(ov.to(torch.int32), dim=-1, dtype=torch.int32))
         return BAResult(T_cw, points, cost0.expand(B), cost.expand(B), n_obs.expand(B))
     return _result(lead, T_cw, points, cost0, cost, ov)
+
+
+class CapturedSolve:
+    """problem -> BAResult: solve_ba replayed as one CUDA graph over static
+    problem and result buffers (pipeline/graph.StepGraph), built by
+    make_solve_ba. The solver makes no host read, so the graph has no key.
+    The result's leaves are the solver's buffers, valid until its next
+    call; the caller's problem is only read. `graph`: the StepGraph (its
+    capture seconds)."""
+
+    def __init__(self, solve, device, graph: bool | None):
+        self.graph = StepGraph(lambda problem, key: (problem, solve(problem)), None, device,
+                               capture=graph, extra=True)
+
+    def __call__(self, problem: BAProblem) -> BAResult:
+        return self.graph(problem)[1]
+
+
+def make_solve_ba(
+    K_mat: torch.Tensor,
+    baseline_fx,
+    iterations: int = 10,
+    graph: bool | None = None,
+):
+    """solve_ba with this many iterations (its other parameters its
+    defaults) as a function of the problem alone, svo_tpu's jitted solve (bench.py's BA stage: jax.jit(lambda p:
+    solve_ba(p, K, bfx, iterations=10))). It runs on K_mat's device. graph:
+    None (the default) captures on a CUDA device (one graph, replayed for
+    every problem of the first call's shapes: CapturedSolve) and runs the
+    same static-buffer code eagerly on the CPU; True captures and raises on
+    the CPU; False returns the eager solve_ba (the parity reference)."""
+
+    def solve(problem: BAProblem) -> BAResult:
+        return solve_ba(problem, K_mat, baseline_fx, iterations)
+
+    if graph is False:
+        return solve
+    return CapturedSolve(solve, K_mat.device, graph)
 
 
 def refine_alternate(

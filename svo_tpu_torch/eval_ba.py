@@ -57,23 +57,25 @@ def schedule(n: int, blocks: int, cams_per_block: int) -> list[int]:
     return his
 
 
-def sweep(mp, poses, camera, his, blocks: int, cams_per_block: int):
+def sweep(mp, poses, camera, his, blocks: int, cams_per_block: int, graph: bool | None = None):
     """refine_global over each frame_hi in his, each sweep's map and poses
     feeding the next. Returns the final map, poses and one (accepted,
-    cost_per_obs) a sweep."""
+    cost_per_obs) a sweep. The refiner is built once with `graph`
+    (global_opt.make_refine_global): on the card each sweep replays, and
+    the map and poses it hands to the next are its own buffers (the final
+    ones valid until the refiner is called again)."""
     import torch
 
     from svo_tpu_torch.parallel import global_opt
 
-    bfx = camera.K[0, 0] * camera.baseline
+    refine = global_opt.make_refine_global(camera.K, camera.K[0, 0] * camera.baseline,
+                                           graph=graph, n_blocks=blocks,
+                                           cams_per_block=cams_per_block, **SWEEP)
     verdicts = []
     for hi in his:
-        out = global_opt.refine_global(
-            mp, poses, torch.tensor(hi, dtype=torch.int32, device=poses.device), camera.K, bfx,
-            n_blocks=blocks, cams_per_block=cams_per_block, **SWEEP,
-        )
+        out = refine(mp, poses, torch.tensor(hi, dtype=torch.int32, device=poses.device))
         mp, poses = out.map, out.poses
-        verdicts.append((out.accepted, out.cost_per_obs))
+        verdicts.append((out.accepted.clone(), out.cost_per_obs.clone()))
     return mp, poses, [(bool(a), float(c)) for a, c in verdicts]
 
 
@@ -118,7 +120,7 @@ def evaluate(args: argparse.Namespace, frames=None, seq=None):
     sync()
     t1 = time.perf_counter()
     _, poses, verdicts = sweep(vo.state.map, vo.state.poses, vo.camera, his, args.blocks,
-                               args.cams_per_block)
+                               args.cams_per_block, vo.graph)
     sync()
     wall = time.perf_counter() - t1
     refined = poses[:n].cpu().numpy()

@@ -196,19 +196,21 @@ def recover_from(vo, ls, rs, gt, args, log=lambda m: None, backend=True):
     (n, 4, 4). backend=False runs arm B as arm A (no sweep, no
     refinement): the check that the arms differ by the back-end alone."""
     from svo_tpu_torch.eval.trajectory import ate_rmse
-    from svo_tpu_torch.parallel.global_opt import refine_global
+    from svo_tpu_torch.parallel.global_opt import make_refine_global
     from svo_tpu_torch.pipeline.state import clone, host
 
     hi = args.inject_at - 1
     lo = hi - args.span + 1
-    K_mat = vo.camera.K
-    bfx = vo.camera.K[0, 0] * vo.camera.baseline
+    # one refiner for every sweep, with the engine's graph: on the card it
+    # replays, and what it returns is its own buffers until its next sweep
+    sweep = make_refine_global(vo.camera.K, vo.camera.K[0, 0] * vo.camera.baseline,
+                               graph=vo.graph)
 
     def refine(st):
-        return refine_global(st.map, st.poses, st.frame_id, K_mat, bfx)
+        return sweep(st.map, st.poses, st.frame_id)
 
-    # the chunk step's own buffers (pipeline/graph.py), which the arms' chunks
-    # overwrite: both arms start from copies
+    # the chunk step's and the refiner's own buffers (pipeline/graph.py),
+    # which the arms' chunks and sweeps overwrite: both arms start from copies
     healthy = clone(vo.state)
     corrupt = inject_drift(healthy, lo, hi, args.rot_deg, args.trans_m)
     pose_err = float(np.linalg.norm(corrupt.poses[hi, :3, 3].cpu().numpy() - gt[hi][:3, 3]))

@@ -92,6 +92,7 @@ def evaluate(args: argparse.Namespace):
     from svo_tpu_torch.geometry import camera as cam_mod
     from svo_tpu_torch.io.synthetic import SyntheticSequence
     from svo_tpu_torch.parallel.batched import BatchedStereoVO
+    from svo_tpu_torch.pipeline.state import host
 
     t_start = time.perf_counter()
     shape = (184, 320) if args.small else (376, 1241)
@@ -182,7 +183,7 @@ def evaluate(args: argparse.Namespace):
         bvo.process_chunk(ls, rs)
         if args.refine_every and (c + 1) % args.refine_every == 0:
             accepted = bvo.refine()
-            per_obs = bvo.last_refine.cost_per_obs.cpu().numpy()
+            per_obs = host(bvo.last_refine.cost_per_obs)  # the refiner's buffer: a copy
             sweeps.append((c, accepted, per_obs))
         sync()
         step_s += time.perf_counter() - t0

@@ -30,7 +30,7 @@ from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry.camera import Camera
 from svo_tpu_torch.ops.index import take_rows
 from svo_tpu_torch.ops.klt import ENGINES
-from svo_tpu_torch.parallel.global_opt import refine_global
+from svo_tpu_torch.parallel.global_opt import make_refine_global
 from svo_tpu_torch.pipeline import frontend
 from svo_tpu_torch.pipeline.odometry import resolve_device
 from svo_tpu_torch.pipeline.state import VoState, host
@@ -51,11 +51,13 @@ class BatchedStereoVO:
             default raises.
         lk_engine: the KLT engine of every tracker call, "patches" or
             "fused" (ops/klt.py).
-        graph: the dispatch of process_chunk and process
-            (frontend.make_cadenced_chunk_step, frontend.make_step): by
-            default captured as CUDA graphs on the card and replayed with
-            the state donated (self.state is the step's own buffers until
-            the next call); False runs the eager loop.
+        graph: the dispatch of process_chunk, process and refine
+            (frontend.make_cadenced_chunk_step, frontend.make_step,
+            global_opt.make_refine_global): by default captured as CUDA
+            graphs on the card and replayed with the state donated
+            (self.state is the step's or the refiner's own buffers until
+            the next call); False runs the eager loop and the eager
+            refine_global.
     """
 
     def __init__(
@@ -91,9 +93,12 @@ class BatchedStereoVO:
         self.chunk = chunk
         self.kf_cadence = kf_cadence
         self.lk_engine = lk_engine
+        self.graph = graph
         self.state: VoState | None = None
         self._refine = None
-        # the RefineResult of the last sweep (its costs say each stream's regime)
+        self.refiner = None  # make_refiner's make_refine_global (a CapturedRefine by default)
+        # the RefineResult of the last sweep (its costs say each stream's
+        # regime): the refiner's own buffers, valid until the next sweep
         self.last_refine = None
         self._boot = frontend.make_bootstrap(self.camera, cfg, lk_engine)
         self._chunk_step = frontend.make_cadenced_chunk_step(
@@ -169,18 +174,23 @@ class BatchedStereoVO:
         the correction feeds back into subsequent tracking. Call refine()
         every few chunks; the span covered is
         (n_blocks-1)*(cams_per_block-2)+cams_per_block frames. The defaults
-        are refine_global's (span 22, 8 alternation rounds). Returns
-        state -> (state, per-stream accepted)."""
+        are refine_global's (span 22, 8 alternation rounds). With the
+        engine's graph (global_opt.make_refine_global) the sweep replays as
+        CUDA graphs on the card with the state donated, as svo_tpu's
+        jax.jit(_refine, donate_argnums=(0,)): the state it returns holds
+        the refiner's buffers (map points, poses), which the next chunk or
+        frame step copies into its own. Returns state -> (state,
+        per-stream accepted)."""
         K_mat = self.camera.K
         bfx = self.camera.K[0, 0] * self.camera.baseline
+        refine = make_refine_global(
+            K_mat, bfx, graph=self.graph, n_blocks=n_blocks, cams_per_block=cams_per_block,
+            n_points=n_points, n_obs=n_obs, ba_iterations=ba_iterations,
+            pg_iterations=pg_iterations,
+        )
 
         def _refine(state: VoState):
-            res = refine_global(
-                state.map, state.poses, state.frame_id, K_mat, bfx,
-                n_blocks=n_blocks, cams_per_block=cams_per_block,
-                n_points=n_points, n_obs=n_obs,
-                ba_iterations=ba_iterations, pg_iterations=pg_iterations,
-            )
+            res = refine(state.map, state.poses, state.frame_id)
             pose = take_rows(res.poses, state.frame_id[..., None])[..., 0, :, :]
             new_state = state._replace(
                 map=state.map._replace(points=res.map.points), poses=res.poses, pose=pose,
@@ -189,6 +199,7 @@ class BatchedStereoVO:
             return new_state, res.accepted
 
         self._refine = _refine
+        self.refiner = refine
         return _refine
 
     def refine(self) -> np.ndarray:
@@ -199,4 +210,4 @@ class BatchedStereoVO:
         if self._refine is None:
             self.make_refiner()
         self.state, accepted = self._refine(self.state)
-        return accepted.cpu().numpy()
+        return host(accepted)

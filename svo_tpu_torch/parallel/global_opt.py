@@ -24,6 +24,13 @@ ONCE per sweep, and the aggressive branch runs (for all streams, selected
 per stream afterwards) only when some stream needs it. Each stream gets
 what lax.map gives it, the zeros in ba_cost* / pg_cost* and the inf in the
 aggressive span costs of a healthy stream included.
+
+svo_tpu jits the sweep with the state donated; make_refine_global is the
+port's counterpart (CapturedRefine): on the card the conservative stage is
+one CUDA graph, the regime is read once from its static outputs, and each
+regime's tail is a graph, replayed over static buffers. refine_global is
+the eager reference, and what refine_global_sharded's callers and the gloo
+paths use.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from svo_tpu_torch.ba.window import WindowMapping, extract_window, write_back
 from svo_tpu_torch.geometry import se3
 from svo_tpu_torch.ops.index import scatter_drop, take_rows
 from svo_tpu_torch.parallel.collective import gather_rows
+from svo_tpu_torch.pipeline.graph import StepGraph
 from svo_tpu_torch.pipeline.state import MapState
 
 
@@ -92,6 +100,12 @@ def extract_blocks(
     )
 
 
+# refine_global's robust loss width and regime threshold (mean initial cost
+# per observation), which make_refine_global's sweeps use as well
+HUBER_DELTA = 5.0
+RECOVER_COST_PER_OBS = 10.0
+
+
 def refine_global(
     mp: MapState,
     poses_wc: torch.Tensor,
@@ -104,9 +118,9 @@ def refine_global(
     n_obs: int = 2048,
     ba_iterations: int = 12,
     pg_iterations: int = 10,
-    huber_delta: float = 5.0,
+    huber_delta: float = HUBER_DELTA,
     reject_threshold: float = 100.0,
-    recover_cost_per_obs: float = 10.0,
+    recover_cost_per_obs: float = RECOVER_COST_PER_OBS,
     alt_points_only: bool = True,
 ) -> RefineResult:
     """Two-regime global refinement on the live state.
@@ -138,18 +152,38 @@ def refine_global(
             huber_delta, reject_threshold, recover_cost_per_obs, alt_points_only,
         )
         return RefineResult(MapState(*(x[0] for x in res.map)), *(x[0] for x in res[1:]))
-    frame_lo = frame_hi - (block_span(n_blocks, cams_per_block) - 1)
-    span_cost, cons_points, aggressive, cost_per_obs = _conservative(
+    span = _conservative(
         mp, poses_wc, frame_hi, K_mat, baseline_fx, n_blocks, cams_per_block, n_points, n_obs,
         ba_iterations, huber_delta, reject_threshold, recover_cost_per_obs, alt_points_only,
     )
+    return _regime(
+        mp, poses_wc, frame_hi, span, _read_regime(span.any_aggressive), K_mat, baseline_fx,
+        n_blocks, cams_per_block, n_points, n_obs, ba_iterations, pg_iterations, huber_delta,
+        reject_threshold,
+    )
 
-    # --- aggressive candidate: block BA + consensus, skipped when every
-    #     span is healthy ---
+
+def _read_regime(any_aggressive: torch.Tensor) -> bool:
+    """A sweep's one host read: whether any stream's span is in the
+    aggressive regime."""
+    return bool(any_aggressive)
+
+
+def _regime(
+    mp, poses_wc, frame_hi, span: "_Span", aggressive_branch: bool, K_mat, baseline_fx,
+    n_blocks, cams_per_block, n_points, n_obs, ba_iterations, pg_iterations, huber_delta,
+    reject_threshold,
+) -> RefineResult:
+    """The sweep after the regime read: the aggressive candidate (block BA
+    and consensus) for every stream when aggressive_branch, selected per
+    stream, then the gate. Without it, every stream gets what svo_tpu's
+    skipped branch returns."""
+    frame_lo = frame_hi - (block_span(n_blocks, cams_per_block) - 1)
+    aggressive, cost_per_obs = span.aggressive, span.cost_per_obs
     zero = torch.zeros_like(cost_per_obs)
     zero_b = torch.zeros(tuple(frame_hi.shape) + (n_blocks,), dtype=zero.dtype, device=zero.device)
     agg = (None, None, zero_b, zero_b, zero, zero)
-    if bool(aggressive.any()):
+    if aggressive_branch:
         problems, mappings = extract_blocks(
             mp, poses_wc, frame_hi, n_blocks, cams_per_block, n_points, n_obs
         )
@@ -172,8 +206,94 @@ def refine_global(
             torch.where(aggressive, pg.cost, zero),
         )
     return _gated_result(
-        mp, poses_wc, frame_lo, span_cost, cons_points, aggressive, cost_per_obs, *agg
+        mp, poses_wc, frame_lo, _span_costs(span, K_mat, baseline_fx, huber_delta, reject_threshold),
+        span.cons_points, aggressive, cost_per_obs, *agg,
     )
+
+
+class CapturedRefine:
+    """(mp, poses_wc, frame_hi) -> RefineResult: refine_global replayed as
+    CUDA graphs over static buffers (pipeline/graph.StepGraph), built by
+    make_refine_global. Its state is (mp, poses_wc, frame_hi) with a
+    leading (S,) (one stream rides as a stack of one, as in refine_global);
+    the conservative stage is a graph of its own (graph.PRE), the regime
+    (`aggressive.any()`) is read once a sweep from its static outputs, and
+    each regime's tail, "healthy" or "aggressive", is a graph; both are
+    captured at the first call. The sweep's map and poses are donated: the
+    result's map and poses are the refiner's state buffers (a caller that
+    feeds them back in is not copied in again), the rest of the result its
+    own buffers, all valid until the next call. The caller's tensors are
+    only read. `graph`: the StepGraph (its capture seconds by graph)."""
+
+    REGIMES = ("healthy", "aggressive")
+
+    def __init__(self, K_mat, baseline_fx, graph: bool | None, n_blocks, cams_per_block,
+                 n_points, n_obs, ba_iterations, pg_iterations, reject_threshold,
+                 alt_points_only):
+        def conservative(state):
+            return _conservative(
+                *state, K_mat, baseline_fx, n_blocks, cams_per_block, n_points, n_obs,
+                ba_iterations, HUBER_DELTA, reject_threshold, RECOVER_COST_PER_OBS,
+                alt_points_only,
+            )
+
+        def regime(state, span):
+            return self.REGIMES[_read_regime(span.any_aggressive)]
+
+        def tail(state, key, span):
+            mp, poses_wc, frame_hi = state
+            res = _regime(
+                mp, poses_wc, frame_hi, span, key == "aggressive", K_mat, baseline_fx, n_blocks,
+                cams_per_block, n_points, n_obs, ba_iterations, pg_iterations, HUBER_DELTA,
+                reject_threshold,
+            )
+            return (res.map, res.poses, frame_hi), res[2:]
+
+        self.graph = StepGraph(tail, None, K_mat.device, capture=graph, key=regime,
+                               pre=conservative, extra=True, keys=self.REGIMES)
+
+    def __call__(self, mp: MapState, poses_wc: torch.Tensor, frame_hi: torch.Tensor) -> RefineResult:
+        one = frame_hi.dim() == 0
+        if one:
+            mp, poses_wc, frame_hi = MapState(*(x[None] for x in mp)), poses_wc[None], frame_hi[None]
+        (mp, poses_wc, _), rest = self.graph((mp, poses_wc, frame_hi))
+        res = RefineResult(mp, poses_wc, *rest)
+        if one:
+            return RefineResult(MapState(*(x[0] for x in res.map)), *(x[0] for x in res[1:]))
+        return res
+
+
+def make_refine_global(
+    K_mat: torch.Tensor,
+    baseline_fx,
+    graph: bool | None = None,
+    n_blocks: int = 4,
+    cams_per_block: int = 7,
+    n_points: int = 512,
+    n_obs: int = 2048,
+    ba_iterations: int = 12,
+    pg_iterations: int = 10,
+    reject_threshold: float = 100.0,
+    alt_points_only: bool = True,
+):
+    """refine_global with these parameters (its huber_delta and
+    recover_cost_per_obs its defaults) as (mp, poses_wc, frame_hi) ->
+    RefineResult, svo_tpu's jitted refiner (jax.jit(_refine,
+    donate_argnums=(0,)), svo_tpu/parallel/batched.py:195). It runs on
+    K_mat's device. graph: None (the default) captures on a CUDA device
+    (CapturedRefine: for one shape of state, the first call's) and runs the
+    same static-buffer code eagerly on the CPU; True captures and raises on
+    the CPU; False returns the eager refine_global (the parity reference,
+    which leaves no buffers behind)."""
+    kw = dict(n_blocks=n_blocks, cams_per_block=cams_per_block, n_points=n_points, n_obs=n_obs,
+              ba_iterations=ba_iterations, pg_iterations=pg_iterations,
+              reject_threshold=reject_threshold, alt_points_only=alt_points_only)
+    if graph is False:
+        def refine(mp, poses_wc, frame_hi):
+            return refine_global(mp, poses_wc, frame_hi, K_mat, baseline_fx, **kw)
+
+        return refine
+    return CapturedRefine(K_mat, baseline_fx, graph, **kw)
 
 
 def refine_global_sharded(
@@ -216,7 +336,7 @@ def refine_global_sharded(
         raise ValueError(f"{n_blocks} blocks do not split evenly over {world} ranks")
     C = cams_per_block
     frame_lo = frame_hi - (block_span(n_blocks, C) - 1)
-    span_cost, cons_points, aggressive, cost_per_obs = _conservative(
+    span = _conservative(
         mp, poses_wc, frame_hi, K_mat, baseline_fx, n_blocks, C, n_points, n_obs,
         ba_iterations, huber_delta, reject_threshold, recover_cost_per_obs, True,
     )
@@ -235,20 +355,33 @@ def refine_global_sharded(
         mp, poses_wc, frame_hi, problems, mappings, res, n_blocks, C, pg_iterations,
     )
     return _gated_result(
-        mp, poses_wc, frame_lo, span_cost, cons_points, aggressive, cost_per_obs,
+        mp, poses_wc, frame_lo, _span_costs(span, K_mat, baseline_fx, huber_delta, reject_threshold),
+        span.cons_points, span.aggressive, span.cost_per_obs,
         agg_mp.points, agg_poses, res.cost0, res.cost, pg.cost0, pg.cost,
     )
+
+
+class _Span(NamedTuple):
+    """What the conservative stage leaves for the rest of a sweep: the
+    whole span's extracted window (the sweep's pricing re-reads it), the
+    conservative candidate's map points, each stream's regime and mean
+    initial cost per observation, and whether any stream is aggressive
+    (the sweep's branch key, read once on the host)."""
+    prob: BAProblem
+    mapping: WindowMapping
+    cons_points: torch.Tensor
+    aggressive: torch.Tensor
+    cost_per_obs: torch.Tensor
+    any_aggressive: torch.Tensor
 
 
 def _conservative(
     mp, poses_wc, frame_hi, K_mat, baseline_fx, n_blocks, cams_per_block, n_points, n_obs,
     ba_iterations, huber_delta, reject_threshold, recover_cost_per_obs, points_only,
-):
+) -> _Span:
     """The conservative candidate over the whole span (a points-only or
     joint alternation against the shipped poses, written back where it did
-    not raise the cost) and the regime of each stream. Returns the span's
-    pricing function span_cost(points, poses), the candidate's map points,
-    `aggressive` and the mean initial cost per observation."""
+    not raise the cost) and the regime of each stream."""
     full_prob, full_map = extract_window(
         mp, poses_wc, frame_hi, n_cams=block_span(n_blocks, cams_per_block),
         n_points=n_points * n_blocks, n_obs=n_obs * n_blocks,
@@ -266,14 +399,22 @@ def _conservative(
         full_prob.pnt_valid, full_prob.cam_valid,
     )
 
-    def span_cost(points, poses):
-        return _span_cost(
-            full_prob, full_map, points, poses, K_mat, baseline_fx, huber_delta, reject_threshold
-        )
-
     # --- regime selection: is the span consistent with its own map? ---
     n_obs_f = torch.clamp(alt.n_obs, min=1).to(alt.cost0.dtype)
-    return span_cost, cons_mp.points, alt.cost0 > recover_cost_per_obs * n_obs_f, alt.cost0 / n_obs_f
+    aggressive = alt.cost0 > recover_cost_per_obs * n_obs_f
+    return _Span(full_prob, full_map, cons_mp.points, aggressive, alt.cost0 / n_obs_f,
+                 aggressive.any())
+
+
+def _span_costs(span: _Span, K_mat, baseline_fx, huber_delta, reject_threshold):
+    """The span's pricing function span_cost(points, poses)."""
+
+    def span_cost(points, poses):
+        return _span_cost(
+            span.prob, span.mapping, points, poses, K_mat, baseline_fx, huber_delta, reject_threshold
+        )
+
+    return span_cost
 
 
 def _gated_result(

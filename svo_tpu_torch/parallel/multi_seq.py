@@ -37,10 +37,14 @@ class MultiStereoVO:
     multiple of the world size, and rank r holds the k = n_streams / world
     streams r*k ... r*k + k - 1, stream r*k + j on devices[j] (devices=None:
     all on `device`). device: this rank's device, where the ranks' rows
-    meet; the card unless "cpu" is passed."""
+    meet; the card unless "cpu" is passed. graph goes to every stream's
+    StereoVO: by default its frame steps are captured on the card and
+    replayed, False runs the eager step (the reference), True raises on
+    the CPU."""
 
     def __init__(self, cfg: Config, camera: Camera, n_streams: int | None = None, devices=None,
-                 group=None, device: str | torch.device = "cuda", lk_engine: str = "patches"):
+                 group=None, device: str | torch.device = "cuda", lk_engine: str = "patches",
+                 graph: bool | None = None):
         self.group = dist.group.WORLD if group is None else group
         world = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
@@ -53,7 +57,8 @@ class MultiStereoVO:
         if len(devices) < k:
             raise ValueError(f"{k} streams a rank need {k} devices, got {len(devices)}")
         self.first = self.rank * k  # global index of this rank's first stream
-        self.streams = [StereoVO(cfg, camera, device=d, lk_engine=lk_engine) for d in devices[:k]]
+        self.streams = [StereoVO(cfg, camera, device=d, lk_engine=lk_engine, graph=graph)
+                        for d in devices[:k]]
         self.fleet_health: np.ndarray | None = None
 
     def _mine(self, frames) -> np.ndarray:

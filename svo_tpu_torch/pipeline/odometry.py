@@ -92,6 +92,7 @@ class StereoVO:
         self.chunk = chunk
         self.kf_cadence = kf_cadence
         self.lk_engine = lk_engine
+        self.graph = graph  # the dispatch of every step, and of a refiner built for this engine
         self._bootstrap = frontend.make_bootstrap(self.camera, config, lk_engine)
         self._step = frontend.make_step(self.camera, config, lk_engine, graph=graph)
         self._chunk_step = None

@@ -142,46 +142,40 @@ def to_numpy(state: VoState) -> VoState:
     return out._replace(rng=out.rng.view(np.uint32))
 
 
-def _map_leaves(fn, *states: VoState) -> VoState:
-    """fn over corresponding leaves of the states, in the order of the
-    fields (features, map, the pyramid's levels then its gradients, the
-    rest): the order jax.tree.leaves gives svo_tpu's state."""
-    features = FeatureSet(*(fn(*xs) for xs in zip(*(s.features for s in states))))
-    mp = MapState(*(fn(*xs) for xs in zip(*(s.map for s in states))))
-    pyrs = [s.prev_pyramid for s in states]
-    levels = tuple(fn(*ls) for ls in zip(*(p[0] for p in pyrs)))
-    grads = tuple(
-        (fn(*(g[0] for g in gs)), fn(*(g[1] for g in gs)))
-        for gs in zip(*(p[1] for p in pyrs))
-    )
-    return VoState(
-        features=features,
-        map=mp,
-        prev_pyramid=(levels, grads),
-        **{f: fn(*(getattr(s, f) for s in states)) for f in VoState._fields[3:]},
-    )
+def leaves(tree) -> list:
+    """Every leaf (tensor or array) of a state, or of any nested tuple
+    (NamedTuples included, such as a RefineResult), depth first: for a
+    VoState the fields in order, pyramid included, the key last,
+    jax.tree.leaves' order for svo_tpu's state (leaves(to_numpy(state))
+    are svo_tpu's leaves with their dtypes)."""
+    if not isinstance(tree, tuple):
+        return [tree]
+    return [x for sub in tree for x in leaves(sub)]
 
 
-def leaves(state: VoState) -> list:
-    """Every leaf of the state in a fixed order, pyramid included, the
-    key last: jax.tree.leaves' order for svo_tpu's state (leaves(to_numpy(
-    state)) are svo_tpu's leaves with their dtypes)."""
-    out = []
-    _map_leaves(out.append, state)
-    return out
-
-
-def unflatten(leaf_list, like: VoState) -> VoState:
-    """The state with `like`'s structure whose leaves(), in order, are
-    leaf_list."""
+def unflatten(leaf_list, like):
+    """`like`'s structure whose leaves(), in order, are leaf_list."""
     it = iter(leaf_list)
-    return _map_leaves(lambda _: next(it), like)
+
+    def build(t):
+        if not isinstance(t, tuple):
+            return next(it)
+        parts = [build(x) for x in t]
+        return type(t)(*parts) if hasattr(t, "_fields") else type(t)(parts)
+
+    return build(like)
 
 
-def clone(state: VoState) -> VoState:
-    """A copy of every leaf: what a caller keeps of a state that a captured
-    chunk step (pipeline/graph.py) is about to overwrite."""
-    return _map_leaves(torch.clone, state)
+def _map_leaves(fn, *trees):
+    """fn over corresponding leaves of the trees, in leaves()' order; the
+    result has the first tree's structure."""
+    return unflatten([fn(*xs) for xs in zip(*map(leaves, trees))], trees[0])
+
+
+def clone(tree):
+    """A copy of every leaf: what a caller keeps of a state (or a result)
+    that a captured step (pipeline/graph.py) is about to overwrite."""
+    return _map_leaves(torch.clone, tree)
 
 
 def stack(states) -> VoState:

@@ -60,13 +60,16 @@ def refine_sweep(vo, n: int, n_blocks: int, cams_per_block: int):
     """The global refiner over frames [0, n) in consecutive spans that
     share one frame, each span's refined map and trajectory feeding the
     next. Returns the refined (n, 4, 4) poses, the number of sweeps and the
-    number accepted."""
+    number accepted. The refiner is built once with the engine's graph: on
+    the card each sweep replays, and the map and trajectory it hands to the
+    next are its own buffers, not copied in again."""
     import torch
 
     from svo_tpu_torch.parallel import global_opt
 
     cam = vo.camera
-    bfx = cam.K[0, 0] * cam.baseline
+    refine = global_opt.make_refine_global(cam.K, cam.K[0, 0] * cam.baseline, graph=vo.graph,
+                                           n_blocks=n_blocks, cams_per_block=cams_per_block)
     span = global_opt.block_span(n_blocks, cams_per_block)
     his = list(range(span - 1, n, span - 1)) or [n - 1]
     if his[-1] != n - 1:
@@ -74,10 +77,7 @@ def refine_sweep(vo, n: int, n_blocks: int, cams_per_block: int):
     mp, poses = vo.state.map, vo.state.poses
     n_acc = 0
     for hi in his:
-        out = global_opt.refine_global(
-            mp, poses, torch.tensor(hi, dtype=torch.int32, device=vo.device), cam.K, bfx,
-            n_blocks=n_blocks, cams_per_block=cams_per_block,
-        )
+        out = refine(mp, poses, torch.tensor(hi, dtype=torch.int32, device=vo.device))
         mp, poses = out.map, out.poses
         n_acc += int(out.accepted)
     return poses[:n].cpu().numpy().astype(np.float64), len(his), n_acc

@@ -20,7 +20,9 @@ rendering. --device-window stages that many mid-run chunks on the device
 first and times them between two synchronisations. --refine-every N runs
 parallel/global_opt.refine_global after every N chunks (reject threshold
 --refine-reject; --joint-alt makes the conservative candidate the joint
-pose+point alternation, still applied to points only). It runs on the card
+pose+point alternation, still applied to points only), built once for each
+engine by make_refine_global with the engine's graph, so that on the card
+the sweep replays as CUDA graphs with the state donated. It runs on the card
 unless --device cpu is given. The result is a JSON object with the keys of
 svo_tpu's SOAK_r05.json, plus the device; --out writes it, and one summary
 line is printed.
@@ -80,7 +82,7 @@ def soak(args: argparse.Namespace):
     from svo_tpu_torch.eval.trajectory import ate_rmse, rpe
     from svo_tpu_torch.geometry import camera as cam_mod
     from svo_tpu_torch.io.synthetic import SyntheticSequence
-    from svo_tpu_torch.parallel.global_opt import refine_global
+    from svo_tpu_torch.parallel.global_opt import make_refine_global
     from svo_tpu_torch.pipeline.odometry import StereoVO
     from svo_tpu_torch.utils import checkpoint
 
@@ -126,22 +128,27 @@ def soak(args: argparse.Namespace):
     _log(t_start, f"soak start: {args.frames} frames, {n_chunks} chunks of {CH}, "
          f"checkpoint at chunk {ckpt_at}, {vo.device}, lk_engine={args.lk_engine}")
 
-    refiner = None
-    if args.refine_every:
-        K_mat = vo.camera.K
-        bfx = vo.camera.K[0, 0] * vo.camera.baseline
+    def make_refiner(eng):
+        """The engine's refiner, built once with its graph (the sweep
+        replayed on the card, its state donated): state -> (state, a copy
+        of the verdict); None without --refine-every."""
+        if not args.refine_every:
+            return None
+        refine = make_refine_global(
+            eng.camera.K, eng.camera.K[0, 0] * eng.camera.baseline, graph=eng.graph,
+            reject_threshold=args.refine_reject, alt_points_only=not args.joint_alt,
+        )
 
         def refiner(state):
-            res = refine_global(
-                state.map, state.poses, state.frame_id, K_mat, bfx,
-                reject_threshold=args.refine_reject, alt_points_only=not args.joint_alt,
-            )
+            res = refine(state.map, state.poses, state.frame_id)
             return state._replace(
                 map=state.map._replace(points=res.map.points), poses=res.poses,
                 pose=res.poses[state.frame_id.long()],
-            ), res.accepted
+            ), res.accepted.clone()
 
-    def step(eng, c, ls, rs):
+        return refiner
+
+    def step(eng, refiner, c, ls, rs):
         """One chunk, then the refinement where it is due; the verdict or
         None."""
         eng.state = eng._chunk_step(eng.state, ls.to(eng.device), rs.to(eng.device))
@@ -150,6 +157,7 @@ def soak(args: argparse.Namespace):
             return acc
         return None
 
+    refiner = make_refiner(vo)
     tmp = tempfile.TemporaryDirectory()
     ckpt_path = os.path.join(tmp.name, "soak_ckpt.npz")
     hw = {"n_points": 0, "obs_cursor": 0}
@@ -175,7 +183,7 @@ def soak(args: argparse.Namespace):
         t0 = time.perf_counter()
         if c == ckpt_at:
             checkpoint.save_state(ckpt_path, vo.state)
-        acc = step(vo, c, ls, rs)
+        acc = step(vo, refiner, c, ls, rs)
         if acc is not None:
             verdicts.append(acc)
         if dev_w and c == dev_hi - 1:
@@ -226,11 +234,12 @@ def soak(args: argparse.Namespace):
     # resume equivalence: the mid-run checkpoint restored into a FRESH engine,
     # a few chunks re-run; the trajectory must equal the uninterrupted run's
     vo2 = engine()
+    refiner2 = make_refiner(vo2)
     vo2.start(l0, r0)
     vo2.state = checkpoint.load_state(ckpt_path, vo2.state)
     tmp.cleanup()
     for c in range(ckpt_at, ckpt_at + r_chunks):
-        step(vo2, c, *rerun.pop(c))
+        step(vo2, refiner2, c, *rerun.pop(c))
     pool.shutdown()
     n_res = 1 + (ckpt_at + r_chunks) * CH
     # with refinement on, the main run's later refine calls adjust poses up

@@ -6,7 +6,9 @@ and 4 of svo_tpu's keying); stream r must equal, bit for bit,
 StereoVO(seed=3+r) on its frames in this process, and fleet_health after
 every step must equal the sum of the two single runs' metrics rows. Streams
 with different motion differ. A world of one in this process is
-StereoVO itself, and a frame stack of the wrong stream count is refused.
+StereoVO itself, and a frame stack of the wrong stream count is refused;
+its streams' eager steps (graph=False) give what its static-buffer steps
+give, trajectories and fleet health bit for bit.
 """
 
 import inspect
@@ -94,3 +96,20 @@ def test_world_of_one_is_stereo_vo():
     single = StereoVO(cfg, camera, seed=SEED, device="cpu").run(frames[0])
     np.testing.assert_array_equal(trajs[0], single.poses[:F])
     np.testing.assert_array_equal(health, single.metrics[F - 1])
+
+
+def test_world_of_one_eager_equals_static_steps():
+    frames, cfg, camera = setup(1)
+    out = {}
+    with world_of_one():
+        for graph in (None, False):
+            multi = MultiStereoVO(cfg, camera, device="cpu", graph=graph)
+            assert multi.streams[0].graph is graph
+            multi.start(frames[0][0][1][None], frames[0][0][2][None], seed=SEED)
+            health = []
+            for t in range(1, F):
+                multi.process(frames[0][t][1][None], frames[0][t][2][None])
+                health.append(multi.fleet_health)
+            out[graph] = (multi.trajectories(F), np.stack(health))
+    for a, b in zip(out[None], out[False]):
+        np.testing.assert_array_equal(a, b)
