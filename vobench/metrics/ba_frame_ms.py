@@ -1,0 +1,8 @@
+"""Median latency of the traced window's frames that ran the window BA
+(outside the profiled slice), ms."""
+
+from vobench.metrics_common import median_latency
+
+
+def read(rec):
+    return median_latency(rec, lambda kf, ba: ba)
