@@ -11,8 +11,10 @@ stack of 8 streams in one launch (which must equal 8 single launches bit
 for bit) at every level's shape; the whole-call launch of lk_level (all
 pyramid levels of a tracker call in one launch) at the temporal, stereo and
 forward-backward shapes, which must equal the chain of per-level launches
-bit for bit and be the faster of the two; and the capability probes
-(svo_tpu_torch/probe.py). It runs small
+bit for bit and be the faster of the two; the capability probes
+(svo_tpu_torch/probe.py); the threefry PnP noise; and RANSAC-PnP
+(ransac_pnp, two launches a call, bit-equal to its plain version at 1, 8
+and 16 streams). It runs small
 card-vs-CPU agreement checks with both KLT engines, single-stream and
 batched. Then the two main paths on bench.py's 97-frame 376x1241 synthetic
 sequence, chunk 12 and keyframe cadence 6, each once per engine
@@ -820,6 +822,136 @@ def phase_rng() -> dict:
                 max_abs_err=max(ref_err, max(r["max_abs_err"] for r in rows.values())))
 
 
+# the PnP kernel's shapes: the fleet's 8 streams, the live frame's one
+# stream without a stream axis, and 16 (the worlds suite); max_features slots,
+# num_hypotheses hypotheses and the previous pose as the one prior, as the
+# frame step calls it
+PNP_STREAMS = (1, STREAMS, WORLD_STREAMS)
+
+
+def _pnp_problem(S: int, seed: int, inlier_share: float):
+    """S streams of 128 correspondences on the card: points 4-60 m ahead,
+    0.5 px noise, a share moved 20-80 px off, 110 live slots, the previous
+    pose 2 cm / 0.02 rad from the truth, Gumbel noise (as the frame step
+    draws it); S = 1 without the stream axis."""
+    from svo_tpu_torch.config import RansacParams
+    from svo_tpu_torch.geometry import se3
+
+    rng = np.random.default_rng(seed)
+    H, N = RansacParams().num_hypotheses, 128
+    K = np.array([[718.856, 0, 607.1928], [0, 718.856, 185.2157], [0, 0, 1]])
+
+    def pose(sigma):
+        xi = torch.from_numpy(np.r_[rng.normal(0, sigma, 3), rng.normal(0, sigma, 3)])
+        return se3.exp(xi).numpy()
+
+    Xw, uv, valid, noise, T_init = [], [], [], [], []
+    for _ in range(S):
+        T_cw = pose(0.05)
+        Xc = np.stack([rng.uniform(-15, 15, N), rng.uniform(-2, 2, N), rng.uniform(4, 60, N)], -1)
+        Xw.append((np.linalg.inv(T_cw) @ np.c_[Xc, np.ones(N)].T).T[:, :3])
+        px = (K @ Xc.T).T
+        px = px[:, :2] / px[:, 2:] + rng.normal(0, 0.5, (N, 2))
+        out = rng.random(N) >= inlier_share
+        px[out] += rng.uniform(20, 80, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
+        uv.append(px)
+        v = np.zeros(N, bool)
+        v[rng.choice(N, 110, replace=False)] = True
+        valid.append(v)
+        noise.append(-np.log(-np.log(rng.uniform(np.finfo(np.float32).tiny, 1, (H, N)))))
+        T_init.append(pose(0.02) @ T_cw)
+    dev = torch.device("cuda")
+    out = [torch.from_numpy(np.asarray(K, np.float32)).to(dev)]
+    for a, dtype in ((Xw, np.float32), (uv, np.float32), (valid, bool), (noise, np.float32),
+                     (T_init, np.float32)):
+        t = torch.from_numpy(np.ascontiguousarray(np.stack(a), dtype)).to(dev)
+        out.append(t[0] if S == 1 else t)
+    return out
+
+
+def bound_pnp(S: int, N: int = 128, H: int = 128, P: int = 1) -> tuple[float, str]:
+    """Least ms for one ransac_pnp call: its inputs read and outputs written
+    once; its float operations at the 32-bit rate outside the tensor cores.
+    A hypothesis: A^T A's 78 entries of 12 products (1,872), the 12x12
+    Cholesky (~650), 8 inverse iterations of two triangular solves and a
+    norm (8 x 312), polar (8 x ~120) and 25 a residual over N slots; an LO
+    chain (3 a stream): 2 rounds of a gate (25 N) and 4 Gauss-Newton steps
+    (~150 N for the terms and their sums, ~600 for the 6x6 solve and the
+    update), and its strict consensus (25 N)."""
+    nbytes = 36 + S * (N * (12 + 8 + 1) + H * N * 4 + P * 64) + S * (64 + N + 4 + 1)
+    hyp = 1872 + 650 + 8 * 312 + 8 * 120 + 25 * N
+    chain = 2 * (25 * N + 4 * (150 * N + 600)) + 25 * N
+    ops = S * ((H + P) * hyp + (2 * P + 1) * chain)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_pnp() -> dict:
+    """The RANSAC-PnP kernel (csrc/ransac_pnp.cu, geometry/pnp.py) against
+    its plain version on the card at S = 1 (no stream axis: StereoVO's
+    frame step), 8 (the fleet's) and 16, at 100/70/30% inliers: the result
+    (T_wc, inliers, inlier_ratio, ok) bit-equal; stream s of the S = 8 call
+    has the index sets, DLT poses, MSAC scores and winner of its
+    single-stream call bit for bit; then the wall ms per call (events), the
+    device us of its two launches (profiler), the plain version's ms and
+    the bound."""
+    from svo_tpu_torch.config import RansacParams
+    from svo_tpu_torch.geometry.pnp import ransac_pnp, ransac_pnp_kernel, ransac_pnp_ref
+
+    t0 = time.perf_counter()
+    params = RansacParams()
+    ransac_pnp.launches = 0
+    rows, err = {}, 0.0
+    for S in PNP_STREAMS:
+        for share in (1.0, 0.7, 0.3):
+            args = _pnp_problem(S, 19 * S + int(10 * share), share)
+            got = ransac_pnp(*args[:5], params, T_init=args[5])
+            want = ransac_pnp_ref(*args[:5], params, T_init=args[5])
+            torch.cuda.synchronize()
+            for name, g, w in zip(got._fields, got, want):
+                gap = _max_abs_err(g, w)
+                err = max(err, gap)
+                check(gap == 0.0 and torch.equal(g, w),
+                      f"ransac_pnp S={S} {share:.0%} inliers: {name} differs from the plain "
+                      f"version by {gap}")
+        if S == STREAMS:
+            _, st8 = ransac_pnp_kernel(*args[:5], params, args[5], stages=True)
+            for s in range(S):
+                one = [a[s] for a in args[1:]]
+                _, st1 = ransac_pnp_kernel(args[0], *one[:4], params, one[4], stages=True)
+                for name in ("idx", "T_h", "msac", "best"):
+                    check(torch.equal(getattr(st8, name)[s], getattr(st1, name)),
+                          f"ransac_pnp: stream {s} of S=8 differs from its single call in {name}")
+        fn = lambda: ransac_pnp(*args[:5], params, T_init=args[5])  # noqa: E731
+        ms = median_ms(fn)
+        plain_ms = median_ms(lambda: ransac_pnp_ref(*args[:5], params, T_init=args[5]),
+                             reps=5, inner=1)
+        n_before = ransac_pnp.launches
+        evs = [e for e in device_events(lambda: [fn() for _ in range(20)]) if "pnp_" in e.key]
+        n_dev = sum(e.count for e in evs)
+        device_us = sum(e.self_device_time_total for e in evs) / max(n_dev, 1) * 2
+        check(ransac_pnp.launches - n_before == 40 and n_dev > 0,
+              f"ransac_pnp S={S}: {ransac_pnp.launches - n_before} launches, {n_dev} traced")
+        bound, by = bound_pnp(S)
+        rows[S] = dict(ms=ms, plain_ms=plain_ms, device_us=device_us, bound_ms=bound, bound_by=by)
+        print(f"pnp S={S} x 128 slots x 128 hypotheses + 1 prior: bit-equal to plain at 100/70/30% "
+              f"inliers{' | S=8 streams equal single calls up to the LO sums' if S == STREAMS else ''}"
+              f" | kernel {ms:.4f} ms a call (events) | device {device_us:.2f} us a call (2 "
+              f"launches) | plain {plain_ms:.2f} ms | bound {bound:.6f} ms ({by})")
+    print(f"pnp: {time.perf_counter() - t0:.1f} s | launches {ransac_pnp.launches} | max abs "
+          f"err against plain {err}")
+    return dict(rows=rows, launches=ransac_pnp.launches, max_abs_err=err)
+
+
+def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| of two tensors of one shape; entries equal
+    (NaN against NaN, inf against the same inf) count 0."""
+    g, w = got.double(), want.double()
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    d = (g - w).abs().nan_to_num(nan=float("inf"))
+    return float(torch.where(same, 0.0, d).max()) if d.numel() else 0.0
+
+
 def _close_poses(got, want) -> tuple[float, int]:
     """Max pose difference over (..., F, 4, 4) trajectories and the number
     of frames past 1e-4."""
@@ -1055,7 +1187,8 @@ def _expected_launches(engine: str, n_kf: int, steps: int = N_FRAMES - 1) -> int
 # the whole-call entry, counted together
 WRAPPERS = {"klt_patches": ("extract_klt_patches",),
             "lk_level": ("lk_track_level", "lk_track_pyramid"),
-            "threefry": ("split_gumbel",)}
+            "threefry": ("split_gumbel",),
+            "ransac_pnp": ("ransac_pnp",)}
 PATH_KERNEL = {"patches": "klt_patches", "fused": "lk_level"}
 
 
@@ -1077,9 +1210,12 @@ def _want(name: str, engine: str, n_kf: int, steps: int) -> int:
     n_kf keyframe steps (bootstraps included): the engine's KLT kernel by
     _expected_launches, the other KLT kernel never, the threefry kernel once
     a frame step (a launch draws every stream's noise; a bootstrap draws
-    none)."""
+    none), the PnP kernel twice a frame step (hypotheses, then the choice;
+    a bootstrap solves none)."""
     if name == "threefry":
         return steps
+    if name == "ransac_pnp":
+        return 2 * steps
     return _expected_launches(engine, n_kf, steps) if name == PATH_KERNEL[engine] else 0
 
 
@@ -2359,15 +2495,17 @@ def phase_tools(kernels, frames, seq) -> dict:
         want = _expected_launches(engine, 3 + (CHUNK + 2 * steps) // CADENCE, CHUNK + 2 * steps)
         check(got[PATH_KERNEL[engine]] == want,
               f"time_chunk: {PATH_KERNEL[engine]} launched {got[PATH_KERNEL[engine]]}, expected {want}")
-    check(got["threefry"] == 2 * (CHUNK + 2 * steps),
-          f"time_chunk: threefry launched {got['threefry']}, expected {2 * (CHUNK + 2 * steps)}")
+    for name, per_step in (("threefry", 1), ("ransac_pnp", 2)):  # both engines' steps
+        want = 2 * per_step * (CHUNK + 2 * steps)
+        check(got[name] == want, f"time_chunk: {name} launched {got[name]}, expected {want}")
 
     p = profile_chunk.profile(profile_chunk.parse_args(argv + ["--lk-engine", "fused"]),
                               seq=seq, frames=frames)
     print("\n".join(f"tools | profile_chunk | {line}" for line in profile_chunk.report(p, 12)))
     want = 2 * CHUNK + CHUNK // CADENCE
     seen = sum(x["count"] for x in p["by_kind"] if x["name"] == "lk_level_kernel")
-    check(p["launches"] == {"klt_patches": 0, "lk_level": want, "threefry": CHUNK} and seen == want,
+    check(p["launches"] == {"klt_patches": 0, "lk_level": want, "threefry": CHUNK,
+                            "ransac_pnp": 2 * CHUNK} and seen == want,
           f"profile_chunk: launches {p['launches']}, lk_level_kernel in the trace {seen}, "
           f"expected {want}")
     check(p["device_ms"] > 0 and 0 < p["busy_share"] <= 1,
@@ -2609,9 +2747,11 @@ def phase_scaling() -> dict:
             want = _expected_launches("patches", sum(w["keyframes"]),
                                       len(w["keyframes"]) * (w["frames"] - 1))
             steps = len(w["keyframes"]) * (w["frames"] - 1)  # one draw a stream's step
-            check(w["launches"] == {"klt_patches": want, "lk_level": 0, "threefry": steps},
+            check(w["launches"] == {"klt_patches": want, "lk_level": 0, "threefry": steps,
+                                    "ransac_pnp": 2 * steps},
                   f"scaling frontend, {n}-process arm, rank {w['rank']}: launches "
-                  f"{w['launches']}, expected {want} klt_patches and {steps} threefry")
+                  f"{w['launches']}, expected {want} klt_patches, {steps} threefry and "
+                  f"{2 * steps} ransac_pnp")
     cfg, cam, lefts, rights = fsw.fleet(SCALING_FRONTEND_FRAMES)
     for s in range(fsw.STREAMS):
         lone = StereoVO(cfg, cam, seed=s, device="cuda").run(
@@ -3217,9 +3357,10 @@ WORKER_GROUPS = {"single": _group_single, "batched": _group_batched,
 def _kernels() -> list:
     from svo_tpu_torch.ops.klt_patches import extract_klt_patches
     from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
+    from svo_tpu_torch.geometry.pnp import ransac_pnp
     from svo_tpu_torch.ops.random import split_gumbel
 
-    return [extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel]
+    return [extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp]
 
 
 def _marker(t_start: float, walls: dict):
@@ -3329,6 +3470,8 @@ def main() -> int:
     rng = phase_rng()
     phase_batched_rng()
     done("threefry kernel and batched streams against single streams")
+    pnp = phase_pnp()
+    done("RANSAC-PnP kernel against its plain version")
     phase_graph_timing(frames, seq)
     done("captured chunk against the eager loop, timed")
     phase_frame_graph_timing(frames, seq)
@@ -3407,6 +3550,19 @@ def main() -> int:
         "batched_bound_ms": r8["bound_ms"], "batched_device_us": r8["device_us"],
         "batched_wall_ms": r8["wall_ms"],
     }
+    # the PnP kernel: two launches a frame step on every path, for one
+    # stream or all; its times at one stream, the 8-stream call beside them
+    pp = path_launches("ransac_pnp")
+    p1, p8 = pnp["rows"][1], pnp["rows"][STREAMS]
+    pnp_row = {
+        "name": "ransac_pnp", "route": "cuda", "source": "svo_tpu_torch/csrc/ransac_pnp.cu",
+        "replaces": "svo_tpu/geometry/pnp.py::ransac_pnp (plain jnp); not a Pallas kernel",
+        "launches": sum(pp.values()), **pp, "max_abs_err": pnp["max_abs_err"],
+        "ms": p1["ms"], "plain_ms": p1["plain_ms"], "bound_ms": p1["bound_ms"],
+        "bound_by": p1["bound_by"], "library_ms": None, "device_us": p1["device_us"],
+        "batched_ms": p8["ms"], "batched_plain_ms": p8["plain_ms"],
+        "batched_bound_ms": p8["bound_ms"], "batched_device_us": p8["device_us"],
+    }
     total = time.time() - t_start
     print("phase walls (s): " + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     print(f"chip_smoke: all phases passed in {total:.0f} s")
@@ -3415,6 +3571,7 @@ def main() -> int:
         kp_row,
         lk_row,
         tf_row,
+        pnp_row,
         {
             "name": "probe", "route": "cuda", "source": "svo_tpu_torch/csrc/probe.cu",
             "replaces": "scripts/probe_mosaic.py:26", "launches": probes["launches"],

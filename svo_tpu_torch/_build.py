@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 The kernels in csrc/*.cu (KLT patch extraction, the fused LK tracker, the
-threefry PnP noise, the capability probes) are compiled with nvcc for
-Hopper (sm_90a), one nvcc process per source and all started together,
-and linked into one shared library with a plain C interface, loaded with
-ctypes. The library goes to build/svo_tpu_torch/ at the repository root,
-named by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the existing library. Nothing is built at import:
-the first call that launches a kernel builds.
+threefry PnP noise, RANSAC-PnP, the capability probes) are compiled with
+nvcc for Hopper (sm_90a), one nvcc process per source and all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes. The library goes to build/svo_tpu_torch/ at the
+repository root, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the existing library. Nothing
+is built at import: the first call that launches a kernel builds.
 """
 
 from __future__ import annotations
@@ -110,6 +110,13 @@ def load() -> ctypes.CDLL:
         lib.svo_lk_track.restype = i
         lib.svo_threefry_split_gumbel.argtypes = [p, i, i, p, p, p, p]
         lib.svo_threefry_split_gumbel.restype = i
+        # the LO gates: host arrays of C floats
+        fp = ctypes.POINTER(f)
+        lib.svo_ransac_pnp.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, fp, i, fp, i, f, f, i, i, p, p, p, p, p, p, p, p, p,
+            p,
+        ]
+        lib.svo_ransac_pnp.restype = i
         lib.svo_probe.argtypes = [i, p, p, p, i, p]
         lib.svo_probe.restype = i
         lib.svo_cuda_error_string.argtypes = [i]

@@ -13,14 +13,24 @@ The stream axis: svo_tpu batches the solve with jax.vmap; here every
 argument may carry leading axes (Xw (..., N, 3), noise (..., H, N), T_init
 (..., 4, 4)), and all hypotheses of all streams go through the same ops, so
 S streams cost the launches of one.
+
+ransac_pnp on a CUDA tensor launches the hand-written kernel
+csrc/ransac_pnp.cu twice (hypotheses and the prior chains, then the
+winner's chain and the choice) for all streams; on a CPU tensor it runs
+ransac_pnp_ref, the plain version (the CPU tests' path, and what the card
+tests hold the kernel against).
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from svo_tpu_torch import _build
 from svo_tpu_torch.config import RansacParams
 from svo_tpu_torch.geometry import se3
 from svo_tpu_torch.ops import linalg
@@ -114,7 +124,7 @@ def _gn_refine(K, T_cw, Xw, uv, weight, iters: int):
     return T
 
 
-def ransac_pnp(
+def ransac_pnp_ref(
     K: torch.Tensor,
     Xw: torch.Tensor,
     uv: torch.Tensor,
@@ -123,7 +133,8 @@ def ransac_pnp(
     params: RansacParams,
     T_init: torch.Tensor | None = None,
 ) -> PnPResult:
-    """Robust pose from N (masked) 3D->2D correspondences.
+    """Robust pose from N (masked) 3D->2D correspondences: the plain
+    version of ransac_pnp.
 
     Args:
         K: (3,3) intrinsics.
@@ -236,3 +247,190 @@ def ransac_pnp(
     floor = torch.clamp(0.1 * n_valid, min=6.0)
     ok = (n_inl >= floor) & finite_pose(T_final)
     return PnPResult(T_wc=se3.inverse(T_final), inliers=inliers, inlier_ratio=ratio, ok=ok)
+
+
+# The kernel's limits: 4 slots a lane of a warp (every configuration's
+# max_features); the LO schedules it holds (csrc/ransac_pnp.cu's kMaxN,
+# kMaxSchedule); streams a grid column.
+KERNEL_MAX_N = 128
+KERNEL_MAX_SCHEDULE = 8
+KERNEL_MAX_STREAMS = 65535
+
+
+class KernelParams(NamedTuple):
+    """RansacParams as the kernel takes them: each float32 as the plain
+    path compares or multiplies it (a Python float against a float32
+    tensor is cast to float32)."""
+    thr2: float            # the strict gate and the MSAC clamp, px^2
+    strict: tuple          # each strict LO round's inlier gate, px^2
+    anneal: tuple          # each annealed LO round's gate, px^2
+    margin: float          # rescue_margin
+    iters: int             # Gauss-Newton iterations a round
+
+
+def kernel_params(params: RansacParams) -> KernelParams:
+    """The kernel's arguments from `params`: inliers_of's gate
+    thr2 * (mult * mult) computed in Python floats as the plain path
+    computes it, then rounded to float32, once for each round of the strict
+    schedule ((1.0,) * lo_rounds) and of lo_anneal."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    thr2 = params.reproj_threshold ** 2
+    return KernelParams(
+        thr2=f32(thr2),
+        strict=tuple(f32(thr2 * (1.0 * 1.0)) for _ in range(params.lo_rounds)),
+        anneal=tuple(f32(thr2 * (m * m)) for m in params.lo_anneal),
+        margin=f32(params.rescue_margin),
+        iters=int(params.refine_iters),
+    )
+
+
+def gn_split(S: int, N: int, c: int) -> int:
+    """Threads that PyTorch's CUDA reduction splits each output of
+    _gn_refine's sum over the points among: the sum of (S, N, *) terms into
+    (S, c) outputs over dim -3, c = 36 for H and 6 for g (setReduceConfig
+    in ATen/native/cuda/Reduce.cuh, read for this shape: the outputs are the
+    fastest axis, vectorised by v; a block of 512 / v threads; the points
+    are split among block_height threads when each would otherwise add 16
+    times block_height of them or more). 1: one thread adds all N. The
+    kernel sums in the same order (csrc/ransac_pnp.cu column_sum)."""
+    v = 4
+    while c % v:
+        v //= 2
+    threads = 512 // v
+    dim0, dim1 = S * c // v, N
+
+    def pow2(n):
+        return 1 << (n.bit_length() - 1) if n < threads else threads
+
+    width = min(pow2(dim0), 32)
+    height = min(pow2(dim1), threads // width)
+    return height if N >= 16 * height else 1
+
+
+def kernel_shapes(K, Xw, uv, valid, noise, params: RansacParams, T_init=None):
+    """(S, N, H, P) of a kernel call, or ValueError naming the limit the
+    call passes: float32 and bool inputs of one leading shape, 6 <= N <=
+    128, at most 8 rounds in either LO schedule, 1 to 65535 streams."""
+    H = params.num_hypotheses
+    lead = tuple(Xw.shape[:-2])
+    N = Xw.shape[-2] if Xw.dim() >= 2 else 0
+    S = math.prod(lead)
+    want = {"Xw": (Xw, lead + (N, 3)), "uv": (uv, lead + (N, 2)), "valid": (valid, lead + (N,)),
+            "noise": (noise, lead + (H, N)), "K": (K, (3, 3))}
+    P = 0
+    if T_init is not None:
+        many = T_init.dim() == len(lead) + 3  # (..., P, 4, 4), else one prior (..., 4, 4)
+        P = T_init.shape[-3] if many else 1
+        want["T_init"] = (T_init, lead + ((P,) if many else ()) + (4, 4))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != (torch.bool if name == "valid" else torch.float32):
+            raise ValueError(f"{name}: the kernel takes float32 (valid: bool), got {t.dtype}")
+    if not 6 <= N <= KERNEL_MAX_N:
+        raise ValueError(f"the kernel takes 6 <= N <= {KERNEL_MAX_N} correspondences, got {N}")
+    if not 1 <= S <= KERNEL_MAX_STREAMS:
+        raise ValueError(f"the kernel takes 1 to {KERNEL_MAX_STREAMS} streams, got {S}")
+    if H < 1:
+        raise ValueError(f"num_hypotheses must be at least 1, got {H}")
+    if params.refine_iters < 0:
+        raise ValueError(f"refine_iters must be >= 0, got {params.refine_iters}")
+    for name, n in (("lo_rounds", params.lo_rounds), ("lo_anneal", len(params.lo_anneal))):
+        if not 0 <= n <= KERNEL_MAX_SCHEDULE:
+            raise ValueError(f"the kernel takes at most {KERNEL_MAX_SCHEDULE} {name}, got {n}")
+    return S, N, H, P
+
+
+class KernelStages(NamedTuple):
+    """What a kernel call keeps besides its result, per stream: each
+    hypothesis's index set, every scored pose (H DLT poses, then the P
+    priors) with its MSAC score, the winner, and every LO chain's pose,
+    strict count, score and inlier mask (prior i strict at 2i, annealed at
+    2i + 1, the winner's at 2P)."""
+    idx: torch.Tensor      # (..., H, 6) int32
+    T_h: torch.Tensor      # (..., H + P, 4, 4) world->camera
+    msac: torch.Tensor     # (..., H + P)
+    best: torch.Tensor     # (...,) int32
+    T_lo: torch.Tensor     # (..., 2P + 1, 4, 4)
+    count_lo: torch.Tensor  # (..., 2P + 1) float32, whole numbers
+    score_lo: torch.Tensor  # (..., 2P + 1)
+    inliers_lo: torch.Tensor  # (..., 2P + 1, N) bool
+
+
+def ransac_pnp_kernel(K, Xw, uv, valid, noise, params: RansacParams, T_init=None,
+                      stages: bool = False):
+    """ransac_pnp on CUDA tensors through csrc/ransac_pnp.cu: two launches
+    for all streams, on the current stream, with no host read (so a CUDA
+    graph captures it). A shape the kernel does not take raises ValueError
+    before anything is built or launched. stages=True also returns the
+    KernelStages, to check the kernel stage by stage."""
+    S, N, H, P = kernel_shapes(K, Xw, uv, valid, noise, params, T_init)
+    dev = Xw.device
+    for name, t in (("K", K), ("uv", uv), ("valid", valid), ("noise", noise), ("T_init", T_init)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, Xw on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
+    kp = kernel_params(params)
+    lib = _build.load()
+    lead = tuple(Xw.shape[:-2])
+    K, Xw, uv, valid, noise = (t.contiguous() for t in (K, Xw, uv, valid, noise))
+    T0 = T_init.contiguous() if P else None
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    hyp = torch.empty((S, H + P, 17), **f32)
+    chain = torch.empty((S, 2 * P + 1, 18), **f32)
+    cmask = torch.empty((S, 2 * P + 1, N), dtype=torch.bool, device=dev)
+    best = torch.empty((S,), **i32)
+    idx = torch.empty((S, H, 6), **i32)
+    T_wc = torch.empty(lead + (4, 4), **f32)
+    inliers = torch.empty(lead + (N,), dtype=torch.bool, device=dev)
+    ratio = torch.empty(lead, **f32)
+    ok = torch.empty(lead, dtype=torch.bool, device=dev)
+    floats = lambda v: (ctypes.c_float * max(len(v), 1))(*v)  # noqa: E731
+    with torch.cuda.device(dev):
+        code = lib.svo_ransac_pnp(
+            K.data_ptr(), Xw.data_ptr(), uv.data_ptr(), valid.data_ptr(), noise.data_ptr(),
+            T0.data_ptr() if P else None, S, N, H, P, kp.iters,
+            floats(kp.strict), len(kp.strict), floats(kp.anneal), len(kp.anneal),
+            kp.thr2, kp.margin, gn_split(S, N, 36), gn_split(S, N, 6), hyp.data_ptr(), chain.data_ptr(), cmask.data_ptr(),
+            best.data_ptr(), idx.data_ptr(), T_wc.data_ptr(), inliers.data_ptr(),
+            ratio.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, code, "ransac_pnp")
+    ransac_pnp.launches += 2
+    result = PnPResult(T_wc=T_wc, inliers=inliers, inlier_ratio=ratio, ok=ok)
+    if not stages:
+        return result
+    return result, KernelStages(
+        idx=idx.reshape(lead + (H, 6)),
+        T_h=hyp[..., :16].reshape(lead + (H + P, 4, 4)),
+        msac=hyp[..., 16].reshape(lead + (H + P,)),
+        best=best.reshape(lead),
+        T_lo=chain[..., :16].reshape(lead + (2 * P + 1, 4, 4)),
+        count_lo=chain[..., 16].reshape(lead + (2 * P + 1,)),
+        score_lo=chain[..., 17].reshape(lead + (2 * P + 1,)),
+        inliers_lo=cmask.reshape(lead + (2 * P + 1, N)),
+    )
+
+
+def ransac_pnp(
+    K: torch.Tensor,
+    Xw: torch.Tensor,
+    uv: torch.Tensor,
+    valid: torch.Tensor,
+    noise: torch.Tensor,
+    params: RansacParams,
+    T_init: torch.Tensor | None = None,
+) -> PnPResult:
+    """Robust pose from N (masked) 3D->2D correspondences (ransac_pnp_ref
+    states the contract). Xw's device picks the path: the kernel on a CUDA
+    tensor (a shape it does not take raises ValueError, never a fall back
+    to the plain path), the plain version on a CPU tensor."""
+    if Xw.device.type == "cpu":
+        return ransac_pnp_ref(K, Xw, uv, valid, noise, params, T_init)
+    if Xw.device.type != "cuda":
+        raise ValueError(f"unsupported device {Xw.device}")
+    return ransac_pnp_kernel(K, Xw, uv, valid, noise, params, T_init)
+
+
+ransac_pnp.launches = 0  # kernel launches since the last reset

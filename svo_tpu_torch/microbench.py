@@ -10,9 +10,10 @@ warm, synchronised mean time of --reps calls (CUDA events; the host clock
 with --device cpu) of: the pyramid and its gradients; KLT temporal (21x21)
 and stereo (11x11), 12 iterations, 4 levels, with the chosen engine; the
 FAST score map; detect with FAST and with ORB; triangulate_dlt and
-triangulate_rectified; ransac_pnp with 128 hypotheses, its Gumbel noise
-drawn on each call from PRNGKey(0) (ops/random.gumbel, as svo_tpu's
-ransac_pnp draws from the key it is given); and the full
+triangulate_rectified; ransac_pnp with 128 hypotheses on the first
+max_features (128) of the points, the width the frame step hands it, its
+Gumbel noise drawn on each call from PRNGKey(0) (ops/random.gumbel, as
+svo_tpu's ransac_pnp draws from the key it is given); and the full
 non-keyframe frame step (step_body with kf_mode="never", 5 reps) from
 example_state after one step has moved it on. svo_tpu's script times that
 step under the data-dependent rule, which on this state (an empty
@@ -112,6 +113,7 @@ def bench(args: argparse.Namespace) -> dict:
     tkl = KltParams(window=21, max_level=3, max_iters=12)
     skl = KltParams(window=11, max_level=3, max_iters=12)
     rp = RansacParams()
+    M = cfg.capacity.max_features  # ransac_pnp's width in the frame step
     pyr1 = KltTracker.build_pyramid(img, 3)
     pyr2 = KltTracker.build_pyramid(img2, 3)
     eng = args.lk_engine
@@ -128,9 +130,9 @@ def bench(args: argparse.Namespace) -> dict:
          lambda: triangulate_dlt(camera.P_left, camera.P_right, uv, uv_r)),
         (f"triangulate rectified ({N})",
          lambda: triangulate_rectified(camera.fx, camera.baseline, uv, uv_r, camera.K)),
-        (f"RANSAC-PnP ({N} pts, {rp.num_hypotheses} hyp)",
-         lambda: ransac_pnp(camera.K, Xw, uv, valid,
-                            gumbel(key, (rp.num_hypotheses, N)), rp)),
+        (f"RANSAC-PnP ({M} pts, {rp.num_hypotheses} hyp)",
+         lambda: ransac_pnp(camera.K, Xw[:M], uv[:M], valid[:M],
+                            gumbel(key, (rp.num_hypotheses, M)), rp)),
     ]
     rows = [{"name": name, "ms": mean_ms(fn, dev, args.reps)} for name, fn in stages]
 

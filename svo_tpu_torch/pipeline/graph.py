@@ -94,6 +94,7 @@ import time
 
 import torch
 
+from svo_tpu_torch.geometry.pnp import ransac_pnp
 from svo_tpu_torch.ops.klt_patches import extract_klt_patches
 from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
 from svo_tpu_torch.ops.random import split_gumbel
@@ -101,7 +102,7 @@ from svo_tpu_torch.pipeline.state import leaves, unflatten
 from svo_tpu_torch.utils import tracing
 
 # the kernel wrappers that count their launches (`.launches`)
-COUNTED = (extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel)
+COUNTED = (extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp)
 
 # the first stage's graph, beside the keys of the second
 PRE = "pre"
