@@ -5,9 +5,10 @@ it.
 A unit (drivers.py) is the bootstrap and the first frames or chunk of a
 stream set, worked out from the frames and seeds alone, or a stretch of
 frames or chunks (a refine cell: two chunks and their sweep) from the
-program's state before it. The readings of a unit (pose_gaps, state_gaps,
-sweep_gaps), each the worst over its streams and frames and then over the
-kept units:
+program's state before it. A unit of a live stream or of a fleet's chunks
+can carry the window BA (Unit.has_ba, from the BA rule). The readings of a
+unit (pose_gaps, state_gaps, sweep_gaps), each the worst over its streams
+and frames and then over the kept units:
 
     pose_gap_m, rot_gap_deg  a pose of the unit, program against reference
     step_gap_m     the unit's first frame-to-frame motion: one step from
@@ -16,9 +17,10 @@ kept units:
     rel_gap_med_med_m  the median over the kept units of a unit's
                    rel_gap_med_m (the one reading that is not the worst)
     rel_gap_max_m  the widest frame-to-frame motion gap
-    ba_pose_gap_m  a unit in which a frame ran the window BA: any pose of
-                   the pass up to the unit's end (the keyframes the BA
-                   rewrote before the unit included)
+    ba_pose_gap_m  a unit in which a frame ran the window BA (live or a
+                   fleet's chunk): any pose of any stream of the pass up
+                   to the unit's end (the keyframes the BA rewrote before
+                   the unit included)
     point_gap_m    a map point after the unit's frames
     sweep_gap_m, sweep_point_gap_m  a pose, a map point after the sweep,
                    both sides sweeping from the program's state before it

@@ -16,8 +16,9 @@ live stream), drawn from the seed by reservoir sampling over every unit it
 runs, plus the first unit of the first pass, which starts from the
 bootstrap. Each kept unit holds the program's state before it (a device
 copy) and after it; check.py works the unit out again with the reference.
-A live cell with the window BA also keeps `check_ba_units` units in which a
-frame ran the BA.
+A cell with the window BA, live or fleet, also keeps `check_ba_units`
+units in which a frame ran the BA (which frames run it follows from the
+BA rule on the host: ba_runs, chunk_schedules).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ class Unit:
     mid: object = None     # fleet with refine(): the state before the unit's sweep
     chunks: tuple = ()     # fleet: the pass's chunk indices
     refine: bool = False   # fleet: a sweep closes the unit
-    has_ba: bool = False   # live: a frame of the unit ran the window BA
+    has_ba: bool = False   # a frame of the unit ran the window BA
 
 
 @dataclass
@@ -83,6 +84,7 @@ class Window:
     in_slice: list = field(default_factory=list)       # live: frame inside the profiled slice
     slice_s: float = 0.0               # live: the slice's seconds, its opening sync to the profiler's stop
     sweep_ms: list = field(default_factory=list)
+    chunk_ms: list = field(default_factory=list)       # fleet with the BA: [ms, ran_ba] a chunk
     first_pass_poses: np.ndarray | None = None
     prof: object = None
     slice_steps: int = 0
@@ -150,10 +152,34 @@ def _nonfinite_frames(poses: np.ndarray) -> int:
     return int((~np.isfinite(poses).all(axis=(-1, -2))).sum())
 
 
+def ba_runs(ba, kf: np.ndarray, kf_count: int) -> tuple[np.ndarray, int]:
+    """Which of these frames run the window BA by its rule (a keyframe
+    whose keyframe count has reached ba.window and is a multiple of
+    ba.interval), from their keyframe flags and the pass's count before
+    them; and the count after them."""
+    counts = kf_count + np.cumsum(kf)
+    run = kf & (counts >= ba.window) & (counts % ba.interval == 0) if ba.enabled else kf & False
+    return run, int(counts[-1]) if len(counts) else kf_count
+
+
+def chunk_schedules(ba, n_chunks: int, chunk: int, cadence: int) -> list[tuple]:
+    """The BA schedule of each cadenced chunk of a pass from the bootstrap,
+    worked out on the host: for each keyframe step of the chunk (the first
+    of every `cadence` frames), whether it runs the window BA. It is the key
+    frontend._ba_schedule reads on the device a chunk, so the set of these is
+    the set of chunk graphs a pass captures."""
+    kf = np.arange(n_chunks * chunk) % cadence == 0
+    run, _ = ba_runs(ba, kf, 1)  # the bootstrap frame is a keyframe
+    return [tuple(bool(x) for x in run[c * chunk: (c + 1) * chunk][kf[:chunk]])
+            for c in range(n_chunks)]
+
+
 class Fleet:
     """`fleet_chunk`: S streams in lockstep, cadenced chunks staged on the
     card as uint8, stream s forward when even (or always, reverse_odd
-    false), reversed when odd."""
+    false), reversed when odd. With the window BA the chunks that run it
+    follow from the BA rule (chunk_schedules), and each chunk's device
+    interval is timed."""
 
     def __init__(self, traffic: dict, seq, seed: int, cfg, camera, device, lk_engine):
         from svo_tpu_torch.parallel.batched import BatchedStereoVO
@@ -170,8 +196,12 @@ class Fleet:
         self.idx = self.index()
         self.l0, self.r0 = seq.left[self.idx[0]], seq.right[self.idx[0]]
         self.chunks = [self.chunk_frames(c) for c in range(self.n_chunks)]
+        self.ba = cfg.ba.enabled
+        self.schedules = chunk_schedules(cfg.ba, self.n_chunks, self.K, self.cad)
+        self.n_ba = t.get("check_ba_units", 0) if self.ba else 0
+        kw = {} if lk_engine is None else {"lk_engine": lk_engine}
         self.vo = BatchedStereoVO(cfg, camera, self.S, chunk=self.K, kf_cadence=self.cad,
-                                  device=device, lk_engine=lk_engine)
+                                  device=device, **kw)
         self.lk_engine = self.vo.lk_engine
         if t["refine_every"]:
             self.vo.make_refiner()
@@ -193,22 +223,37 @@ class Fleet:
         return (self.vo._chunk_step, getattr(self.vo.refiner, "graph", None))
 
     def warm(self) -> None:
-        """The bootstrap, the chunk graph and, where the cell refines, both
-        regimes of the refiner (captured at its first call)."""
+        """The bootstrap, the chunk graph (with the window BA: the first
+        pass's chunks until every BA schedule a pass meets was captured)
+        and, where the cell refines, both regimes of the refiner (captured
+        at its first call)."""
         self.vo.start(self.l0, self.r0, seed=pass_seed(self.seed ^ 0x5EED, 0))
-        for c in range(self.per):
+        step = self.vo._chunk_step
+        graphs = step.graphs if getattr(step, "capture", False) else None  # None: eager (CPU)
+        need = set(self.schedules) if self.ba and graphs is not None else set()
+        c = 0
+        while c < self.per or not need <= set(graphs or ()):
+            if c == self.n_chunks:
+                raise RuntimeError(f"warm-up met schedules {sorted(graphs)}, not all of "
+                                   f"{sorted(need)}")
             self.vo.process_chunk(*self.chunks[c])
+            c += 1
         if self.t["refine_every"]:
             self.vo.refine()
         # the bootstrap unit's after-state (and state before its sweep), and
         # each sampled unit's two (three)
         self.per_unit = 3 if self.t["refine_every"] else 2
-        self.slots = Slots(self.vo.state, self.per_unit * (1 + self.t["check_units"]))
+        self.slots = Slots(self.vo.state,
+                           self.per_unit * (1 + self.t["check_units"] + self.n_ba))
         _sync(self.device)
 
     def window(self, seconds: float, trace: bool) -> Window:
         t, S, K, vo = self.t, self.S, self.K, self.vo
-        res = Reservoir(t["check_units"], np.random.default_rng([self.seed, 1]))
+        rng = np.random.default_rng([self.seed, 1])
+        res = Reservoir(t["check_units"], rng)
+        res_ba = Reservoir(self.n_ba, rng)
+        timed = self.ba and self.device.type == "cuda"
+        chunk_events = []
         self.boot: Unit | None = None
         win = Window()
         lo, hi = t["trace_skip"], t["trace_skip"] + t["trace_units"]
@@ -234,25 +279,38 @@ class Fleet:
                     slice_span = span("slice")
                     slice_span.__enter__()
                 boot = p == 0 and u == 0
-                slot = None if boot else res.offer()
-                base = self.per_unit * (0 if boot else 1 + slot) if (boot or slot is not None) else 0
                 chunks = tuple(range(u * self.per, (u + 1) * self.per))
+                has_ba = any(any(self.schedules[c]) for c in chunks)
+                # a unit that runs the BA goes to the BA sample first
+                slot, pool, first = None, res, 1
+                if not boot and has_ba:
+                    slot, pool, first = res_ba.offer(), res_ba, 1 + t["check_units"]
+                if not boot and slot is None:
+                    slot, pool, first = res.offer(), res, 1
+                keep = boot or slot is not None
+                base = self.per_unit * (0 if boot else first + slot) if keep else 0
                 unit = None
-                if boot or slot is not None:
+                if keep:
                     with span("snapshot"):
                         unit = Unit(p, 1 + chunks[0] * K, len(chunks) * K, ps,
                                     None if boot else self.slots.copy(base, vo.state),
-                                    chunks=chunks, refine=bool(t["refine_every"]))
+                                    chunks=chunks, refine=bool(t["refine_every"]),
+                                    has_ba=has_ba)
                 for c in chunks:
                     if len(in_flight) >= t["in_flight"]:
                         with span("in_flight_wait"):
                             in_flight.popleft().synchronize()
+                    start = torch.cuda.Event(enable_timing=True) if timed else None
+                    if start is not None:
+                        start.record()
                     with span("step"):
                         vo.process_chunk(*self.chunks[c])
-                    ev = torch.cuda.Event() if self.device.type == "cuda" else None
+                    ev = torch.cuda.Event(enable_timing=timed) if self.device.type == "cuda" else None
                     if ev is not None:
                         ev.record()
                         in_flight.append(ev)
+                    if start is not None:
+                        chunk_events.append((start, ev, any(self.schedules[c])))
                     win.frames += S * K
                 if t["refine_every"]:
                     if unit is not None:
@@ -275,7 +333,7 @@ class Fleet:
                     if boot:
                         self.boot = unit
                     else:
-                        res.items[slot] = unit
+                        pool.items[slot] = unit
                 if tracing and u == hi - 1:
                     _sync(self.device)
                     slice_span.__exit__(None, None, None)
@@ -302,7 +360,9 @@ class Fleet:
         if done:
             win.nonfinite += _nonfinite_frames(vo.state.poses[:, 1: 1 + done].cpu().numpy())
         win.sweep_ms = [a.elapsed_time(b) for a, b in sweeps]
-        self.units = ([self.boot] if self.boot else []) + [u for u in res.items if u is not None]
+        win.chunk_ms = [[a.elapsed_time(b), ran_ba] for a, b, ran_ba in chunk_events]
+        kept = ([self.boot] if self.boot else []) + res.items + res_ba.items
+        self.units = [u for u in kept if u is not None]
         return win
 
     def free(self) -> None:
@@ -367,15 +427,6 @@ class Live:
         self.slots = Slots(self.vo.state, 2 + 2 * (self.t["check_units"] + n_ba))
         _sync(self.device)
 
-    def _ba_frames(self, kf: np.ndarray, kf_count: int) -> tuple[np.ndarray, int]:
-        """Which of these frames ran the window BA, by its rule (a keyframe
-        whose keyframe count has reached ba.window and is a multiple of
-        ba.interval), from the keyframe flags and the pass's count so far."""
-        ba = self.cfg.ba
-        counts = kf_count + np.cumsum(kf)
-        run = kf & (counts >= ba.window) & (counts % ba.interval == 0) if ba.enabled else kf & False
-        return run, int(counts[-1]) if len(counts) else kf_count
-
     def window(self, seconds: float, trace: bool) -> Window:
         t, vo, L = self.t, self.vo, self.L
         rng = np.random.default_rng([self.seed, 1])
@@ -433,7 +484,7 @@ class Live:
                     break
                 with span("snapshot"):
                     kf = vo.state.kf_flags[f0: f0 + done].cpu().numpy()
-                run_ba, kf_count = self._ba_frames(kf, kf_count)
+                run_ba, kf_count = ba_runs(self.cfg.ba, kf, kf_count)
                 win.frame_class.extend(zip(kf.tolist(), run_ba.tolist()))
                 if stop:
                     break

@@ -119,7 +119,9 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace_on: bool, device="cuda
     marks = [t_process0] + [m for _, m in phases]
     log(f"set-up {setup_s:.3f} s (" + ", ".join(
         f"{name} {b - a:.3f}" for (name, _), a, b in zip(phases, marks, marks[1:]))
-        + f" s); {captured} graphs captured")
+        + f" s); {captured} graphs captured" + "".join(
+            f", {key} in {sec:.3f} s" for st in drv.steps() if st is not None
+            for key, sec in getattr(st, "capture_s", {}).items()))
 
     win = drv.window(seconds, trace_on)
 
@@ -172,7 +174,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace_on: bool, device="cuda
     rec = None
     if trace_on:
         rec = {"cell": cell.name, "kind": t["kind"], "streams": t["streams"],
-               "sweep_ms": win.sweep_ms,
+               "sweep_ms": win.sweep_ms, "chunk_ms": win.chunk_ms,
                "frames": [[ms, bool(c[0]), bool(c[1]), s, h] for ms, c, s, h in
                           zip(win.latencies_ms, win.frame_class, win.in_slice, win.host_ms)],
                "slice": None, "lk_launches": [],

@@ -54,3 +54,11 @@ def live_rate(rec: dict) -> float | None:
     if not w or not n or w["seconds"] <= w["slice_s"]:
         return None
     return n / (w["seconds"] - w["slice_s"])
+
+
+def median_chunk_ms(rec: dict, ran_ba: bool) -> float | None:
+    """Median of a fleet window's chunk intervals (rec["chunk_ms"]: [ms,
+    ran_ba] a chunk, recorded in cells with the window BA) over the chunks
+    that ran the BA (ran_ba true) or did not, ms; None if there are none."""
+    got = [ms for ms, ba in rec["chunk_ms"] if ba == ran_ba]
+    return statistics.median(got) if got else None

@@ -13,7 +13,8 @@ FIX = json.load(open(os.path.join(os.path.dirname(__file__), "fixtures", "slice_
 
 # fleet: activities [100, 300], [200, 400] (the steps'), [600, 700] and
 # [650, 680] (inside the sweep's span [550, 900]); union 300 + 100 ns of
-# the slice's 1000; 2 steps
+# the slice's 1000; 2 steps; chunk intervals 30, 34, 31 ms without the
+# window BA and 50, 58 ms with it
 LK_BYTES = 100 * (3 * 24 * 24 + 34 * 34) * 4 + 128 * 49     # one level, bytes bind
 LK_BOUND_MS = 4 * LK_BYTES / 3.35e12 * 1e3                  # 4 levels
 EXPECTED = {
@@ -21,6 +22,8 @@ EXPECTED = {
     ("fleet", "kernels_per_step.fleet"): 2 / 2,
     ("fleet", "refine_sweep_ms.fleet"): 16.0,
     ("fleet", "lk_level_roofline.fleet"): 100.0 * LK_BOUND_MS / (200 / 1e6),
+    ("fleet", "ba_chunk_ms.fleet"): 54.0,
+    ("fleet", "plain_chunk_ms.fleet"): 31.0,
     # live: frames 10, 12 (track), 30 (keyframe), 50 (BA), 99 (in the slice:
     # left out), process() returning after 4, 5, 6, 9 (and 50) ms
     ("live", "device_idle_share.live"): 100.0 * (1 - 400 / 1000),
@@ -51,7 +54,7 @@ def test_metric_reproduces_its_value(kind, name):
 
 
 def test_a_metric_with_nothing_to_read_returns_none():
-    empty = dict(FIX["fleet"], slice=None, sweep_ms=[], lk_launches=[], frames=[])
+    empty = dict(FIX["fleet"], slice=None, sweep_ms=[], chunk_ms=[], lk_launches=[], frames=[])
     for _, name in EXPECTED:
         assert spec.metric_reader(name)(empty) is None
 
