@@ -827,18 +827,21 @@ def phase_rng() -> dict:
 # num_hypotheses hypotheses and the previous pose as the one prior, as the
 # frame step calls it
 PNP_STREAMS = (1, STREAMS, WORLD_STREAMS)
+# the dense configuration's call (vobench/configs/kitti00-orb2k.json): 8
+# streams of 2,048 slots, the kernel's wide path
+PNP_DENSE = (STREAMS, 2048)
 
 
-def _pnp_problem(S: int, seed: int, inlier_share: float):
-    """S streams of 128 correspondences on the card: points 4-60 m ahead,
-    0.5 px noise, a share moved 20-80 px off, 110 live slots, the previous
-    pose 2 cm / 0.02 rad from the truth, Gumbel noise (as the frame step
-    draws it); S = 1 without the stream axis."""
+def _pnp_problem(S: int, seed: int, inlier_share: float, N: int = 128):
+    """S streams of N correspondences on the card: points 4-60 m ahead,
+    0.5 px noise, a share moved 20-80 px off, 110 of 128 slots live, the
+    previous pose 2 cm / 0.02 rad from the truth, Gumbel noise (as the frame
+    step draws it); S = 1 without the stream axis."""
     from svo_tpu_torch.config import RansacParams
     from svo_tpu_torch.geometry import se3
 
     rng = np.random.default_rng(seed)
-    H, N = RansacParams().num_hypotheses, 128
+    H = RansacParams().num_hypotheses
     K = np.array([[718.856, 0, 607.1928], [0, 718.856, 185.2157], [0, 0, 1]])
 
     def pose(sigma):
@@ -856,7 +859,7 @@ def _pnp_problem(S: int, seed: int, inlier_share: float):
         px[out] += rng.uniform(20, 80, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
         uv.append(px)
         v = np.zeros(N, bool)
-        v[rng.choice(N, 110, replace=False)] = True
+        v[rng.choice(N, 110 * N // 128, replace=False)] = True
         valid.append(v)
         noise.append(-np.log(-np.log(rng.uniform(np.finfo(np.float32).tiny, 1, (H, N)))))
         T_init.append(pose(0.02) @ T_cw)
@@ -886,15 +889,17 @@ def bound_pnp(S: int, N: int = 128, H: int = 128, P: int = 1) -> tuple[float, st
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_pnp() -> dict:
+def phase_pnp(frames, seq) -> dict:
     """The RANSAC-PnP kernel (csrc/ransac_pnp.cu, geometry/pnp.py) against
     its plain version on the card at S = 1 (no stream axis: StereoVO's
-    frame step), 8 (the fleet's) and 16, at 100/70/30% inliers: the result
-    (T_wc, inliers, inlier_ratio, ok) bit-equal; stream s of the S = 8 call
-    has the index sets, DLT poses, MSAC scores and winner of its
-    single-stream call bit for bit; then the wall ms per call (events), the
-    device us of its two launches (profiler), the plain version's ms and
-    the bound."""
+    frame step), 8 (the fleet's) and 16 at 128 slots, and 8 at 2,048 (the
+    dense configuration's, the wide path), at 100/70/30% inliers: the
+    result (T_wc, inliers, inlier_ratio, ok) bit-equal; stream s of the S =
+    8 call at 128 has the index sets, DLT poses, MSAC scores and winner of
+    its single-stream call bit for bit; then the wall ms per call (events),
+    the device us of its two launches (profiler), the plain version's ms,
+    the bound and the share of it; then the dense chunk path
+    (phase_dense_chunk)."""
     from svo_tpu_torch.config import RansacParams
     from svo_tpu_torch.geometry.pnp import ransac_pnp, ransac_pnp_kernel, ransac_pnp_ref
 
@@ -902,9 +907,9 @@ def phase_pnp() -> dict:
     params = RansacParams()
     ransac_pnp.launches = 0
     rows, err = {}, 0.0
-    for S in PNP_STREAMS:
+    for S, N in [(S, 128) for S in PNP_STREAMS] + [PNP_DENSE]:
         for share in (1.0, 0.7, 0.3):
-            args = _pnp_problem(S, 19 * S + int(10 * share), share)
+            args = _pnp_problem(S, 19 * S + int(10 * share) + N, share, N)
             got = ransac_pnp(*args[:5], params, T_init=args[5])
             want = ransac_pnp_ref(*args[:5], params, T_init=args[5])
             torch.cuda.synchronize()
@@ -914,7 +919,7 @@ def phase_pnp() -> dict:
                 check(gap == 0.0 and torch.equal(g, w),
                       f"ransac_pnp S={S} {share:.0%} inliers: {name} differs from the plain "
                       f"version by {gap}")
-        if S == STREAMS:
+        if S == STREAMS and N == 128:
             _, st8 = ransac_pnp_kernel(*args[:5], params, args[5], stages=True)
             for s in range(S):
                 one = [a[s] for a in args[1:]]
@@ -932,15 +937,69 @@ def phase_pnp() -> dict:
         device_us = sum(e.self_device_time_total for e in evs) / max(n_dev, 1) * 2
         check(ransac_pnp.launches - n_before == 40 and n_dev > 0,
               f"ransac_pnp S={S}: {ransac_pnp.launches - n_before} launches, {n_dev} traced")
-        bound, by = bound_pnp(S)
-        rows[S] = dict(ms=ms, plain_ms=plain_ms, device_us=device_us, bound_ms=bound, bound_by=by)
-        print(f"pnp S={S} x 128 slots x 128 hypotheses + 1 prior: bit-equal to plain at 100/70/30% "
-              f"inliers{' | S=8 streams equal single calls up to the LO sums' if S == STREAMS else ''}"
-              f" | kernel {ms:.4f} ms a call (events) | device {device_us:.2f} us a call (2 "
-              f"launches) | plain {plain_ms:.2f} ms | bound {bound:.6f} ms ({by})")
-    print(f"pnp: {time.perf_counter() - t0:.1f} s | launches {ransac_pnp.launches} | max abs "
-          f"err against plain {err}")
-    return dict(rows=rows, launches=ransac_pnp.launches, max_abs_err=err)
+        bound, by = bound_pnp(S, N)
+        share = 100.0 * bound / (device_us / 1e3)
+        rows[S if N == 128 else (S, N)] = dict(ms=ms, plain_ms=plain_ms, device_us=device_us,
+                                               bound_ms=bound, bound_by=by, roofline_pct=share)
+        same = " | S=8 streams equal single calls up to the LO sums" if S == STREAMS and N == 128 \
+            else ""
+        print(f"pnp S={S} x {N} slots x 128 hypotheses + 1 prior: bit-equal to plain at "
+              f"100/70/30% inliers{same} | kernel {ms:.4f} ms a call (events) | device "
+              f"{device_us:.2f} us a call (2 launches) | plain {plain_ms:.2f} ms | bound "
+              f"{bound:.6f} ms ({by}), {share:.3f}% of it")
+    launches = ransac_pnp.launches
+    dense = phase_dense_chunk(frames, seq)
+    print(f"pnp: {time.perf_counter() - t0:.1f} s | launches {launches} (+{dense['launches']} on "
+          f"the dense chunk path) | max abs err against plain {err}")
+    return dict(rows=rows, launches=launches, max_abs_err=err, dense=dense)
+
+
+def phase_dense_chunk(frames, seq) -> dict:
+    """The dense configuration's frame step (vobench/configs/kitti00-orb2k.json:
+    ORB with 2,000 features, 2,048 slots and detections, the map sized for
+    sequence 00, the fused engine) for 8 streams in captured cadenced chunks
+    of 12 at full width: two chunks, each frame step two ransac_pnp
+    launches of 8 x 2,048 slots (ransac_pnp.slots) and one threefry launch,
+    every pose finite; the second chunk's replay timed."""
+    import dataclasses
+
+    from svo_tpu_torch.config import Capacity, OrbParams
+    from svo_tpu_torch.geometry.pnp import ransac_pnp
+    from svo_tpu_torch.ops.random import split_gumbel
+    from svo_tpu_torch.parallel.batched import BatchedStereoVO
+
+    staged = _stage_batched(frames, seq, "dense chunk path")
+    cfg = dataclasses.replace(
+        _config_and_camera(seq, use_orb=True)[0],
+        orb_params=OrbParams(nfeatures=2000, scale_factor=1.2, pyr_levels=8, patch_size=31,
+                             fast_treshold=20),
+        capacity=Capacity(max_features=2048, max_detections=2048, max_points=1 << 20))
+    cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking,
+                                                                features_to_track=1120))
+    bvo = BatchedStereoVO(cfg, staged.cam, STREAMS, chunk=CHUNK, kf_cadence=CADENCE,
+                          lk_engine="fused")
+    bvo.start(staged.l0, staged.r0)
+    ransac_pnp.launches = ransac_pnp.slots = split_gumbel.launches = 0
+    bvo.process_chunk(*staged.chunks[0])
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    bvo.process_chunk(*staged.chunks[1])
+    b.record()
+    torch.cuda.synchronize()
+    steps = 2 * CHUNK
+    got = (ransac_pnp.launches, ransac_pnp.slots, split_gumbel.launches)
+    want = (2 * steps, steps * STREAMS * 2048, steps)
+    check(got == want, f"dense chunk path: ransac_pnp launches, slots and threefry launches {got}, "
+                       f"expected {want}")
+    poses = bvo.trajectories(steps + 1)
+    check(bool(np.isfinite(poses).all()), "dense chunk path: a non-finite pose")
+    n_feat = int(bvo.state.features.valid.sum())
+    chunk_ms = a.elapsed_time(b)
+    print(f"dense chunk path: {STREAMS} streams x 2048 slots, ORB 2000, fused; {steps} steps, "
+          f"ransac_pnp {got[0]} launches ({got[1]} slots), threefry {got[2]}; a replayed chunk "
+          f"of {CHUNK} {chunk_ms:.2f} ms; {n_feat} live features at the end")
+    return dict(launches=got[0], slots=got[1], chunk_ms=chunk_ms, live_features=n_feat)
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -3470,7 +3529,7 @@ def main() -> int:
     rng = phase_rng()
     phase_batched_rng()
     done("threefry kernel and batched streams against single streams")
-    pnp = phase_pnp()
+    pnp = phase_pnp(frames, seq)
     done("RANSAC-PnP kernel against its plain version")
     phase_graph_timing(frames, seq)
     done("captured chunk against the eager loop, timed")

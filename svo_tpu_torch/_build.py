@@ -113,8 +113,8 @@ def load() -> ctypes.CDLL:
         # the LO gates: host arrays of C floats
         fp = ctypes.POINTER(f)
         lib.svo_ransac_pnp.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, fp, i, fp, i, f, f, i, i, p, p, p, p, p, p, p, p, p,
-            p,
+            p, p, p, p, p, p, i, i, i, i, i, fp, i, fp, i, f, f, i, i, i, i, i, i, p, p, p, p, p,
+            p, p, p, p, p,
         ]
         lib.svo_ransac_pnp.restype = i
         lib.svo_probe.argtypes = [i, p, p, p, i, p]

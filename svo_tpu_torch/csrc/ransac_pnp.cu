@@ -21,22 +21,24 @@
 // - launch 2, one warp a stream: the first-index arg-min of the scores,
 //   the LO chain from the winner, the strict-consensus comparison, the
 //   rescue rule, inlier_ratio, ok and T_wc = inverse(T_final).
-// A lane holds 4 of the stream's slots and their residuals (N <= 128,
-// every configuration's max_features, in one warp). The small
+// Up to N = 128 slots (the narrow path) a lane holds 4 of the stream's
+// slots and their residuals in registers; past 128, up to 2,048 (the wide
+// path, below), a point is read where it is needed and the sums over the
+// points follow the plain path's split at that N. The small
 // dense algebra (12x12 and 6x6 Cholesky and solves, polar, the se(3)
 // exponential, 4x4 products) runs in every lane of the warp on the same
 // values, in registers: no exchange, and every lane ends with the same
 // bits. A^T A and each Gauss-Newton sum are spread over the lanes through
 // shared memory.
 //
-// Bit-equal to the plain path on the card at N = 128 slots (every
-// configuration's max_features). The plain path is a chain of tensor ops,
+// Bit-equal to the plain path on the card at N = 128 slots (the narrow
+// path) and at N = 256, 1,024 and 2,048 (the wide path). The plain path is a chain of tensor ops,
 // each rounding once, and the kernel repeats each op's arithmetic in its
 // order (__fadd_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn: nothing contracted).
 // The orders were read off the card (PyTorch 2.11, CUDA 12.8, H100) by
 // holding each op of the plain path against candidate orders on its own
-// inputs. At another N the plain path's cuBLAS kernels and reduction
-// configs change with N; the kernel keeps these orders and agrees with it
+// inputs. Below 128 the plain path's cuBLAS kernels and reduction configs
+// change with N; the narrow path keeps N = 128's orders and agrees with it
 // to rounding. The orders:
 // - a product with more than one output column (cuBLAS gemm): a fused
 //   multiply-add chain in k order (dot_chain), except for a single 3x3 or
@@ -75,7 +77,9 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSL = 4;             // slots a lane
-constexpr int kMaxN = 32 * kSL;    // slots a stream
+constexpr int kMaxN = 32 * kSL;    // slots a stream of the narrow path
+constexpr int kMaxWideN = 2048;    // slots a stream of the wide path
+constexpr int kMaxParts = 128;     // threads of a wide Gauss-Newton sum (bh x ctas)
 constexpr int kWarps = 2;          // warps a block of launch 1
 constexpr int kMaxSchedule = 8;    // LO rounds a chain, at most
 constexpr int kNC = 27;            // GN terms a point: H's 21 lower entries, g's 6
@@ -93,6 +97,8 @@ struct Args {
   int S, N, H, P, iters, n_strict, n_anneal;
   int single;              // S == 1: the single-matrix products' orders
   int bh_H, bh_g;          // threads a Gauss-Newton sum of H, of g
+  int ct_H, ct_g;          // N > 128: blocks a Gauss-Newton sum of H, of g
+  int bw_h, bw_s;          // N > 128: threads of a hypothesis's MSAC sum, of a chain's
   float strict[kMaxSchedule];  // inlier gates of each LO round, squared px
   float anneal[kMaxSchedule];
   float thr2;              // the strict gate and the MSAC clamp
@@ -516,6 +522,8 @@ __device__ __forceinline__ float column_sum(const float* col, int N, int bh) {
   }
 }
 
+__device__ void gn_solve(const Args& a, const float* tot, float* T);
+
 // One masked Gauss-Newton step of _gn_refine: each lane writes its points'
 // 27 terms of J^T (J w) and J^T (r w) to shared memory, lane q < 27 sums
 // term q over the points, then every lane solves and updates T.
@@ -565,7 +573,13 @@ __device__ void gn_step(const Args& a, const Cam& c, const Pts& p, float* T, uns
   float* tot = sm + a.N * kNC;
   if (lane < kNC) tot[lane] = column_sum(sm + lane, a.N, lane < 21 ? a.bh_H : a.bh_g);
   __syncwarp();
-  // H = sum + 1e-6 I; delta = -H^-1 g, zeroed unless finite
+  gn_solve(a, tot, T);
+}
+
+// The rest of a Gauss-Newton step from the sums tot (H's 21 lower entries,
+// then g's 6), in every lane: H = sum + 1e-6 I; delta = -H^-1 g, zeroed
+// unless finite; T <- exp(delta) T.
+__device__ void gn_solve(const Args& a, const float* tot, float* T) {
   float L[21], g[6], y[6], x[6];
   if (a.single) {
     chol<6, true>(tot, 1e-6f, 0.0f, L);
@@ -958,25 +972,490 @@ __global__ void __launch_bounds__(32) pnp_select_kernel(const Args a) {
   }
 }
 
+
+// ---- the wide path: N > 128 slots ---------------------------------------------
+//
+// Past 128 slots a lane cannot hold its slots in registers (64 at N =
+// 2048), and PyTorch's reductions change their split with N. A point is read
+// where it is needed (__ldg: a stream's points, 40 KB at N = 2048, stay in
+// L1), a warp's inlier masks are bytes in shared memory, and each sum over
+// the points repeats the split that ATen's setReduceConfig picks for the
+// plain path's shape (geometry/pnp.py::sum_width, gn_plan):
+// - a sum over the N slots (the MSAC score of a hypothesis, bw_h threads;
+//   a chain's strict score, bw_s): vectorised by 4, thread t adding the
+//   4-vectors t, t + bw, ... into four accumulators, the 0-3 tail elements
+//   into thread 0-2's first, then a shared-memory tree of offsets bw / 2 ..
+//   32 and the warp tree of offsets 16 .. 1. A lane is threads lane,
+//   lane + 32, ..., so a lane's vectors are lane + 32 m.
+// - a Gauss-Newton sum (dim -3): bh threads along the points in each of ct
+//   blocks, thread q = y + bh c adding points q, q + bh ct, ... into four
+//   accumulators; each block's tree over y, then (ct > 1) thread y of the
+//   last block adding the blocks' partials c = y, y + bh, ... and a tree
+//   over y. A lane computes accumulator (q, i) for items lane + 32 s; four
+//   lanes' accumulators are combined by shuffles, the trees run in shared
+//   memory, a lane a term.
+
+struct Pt {
+  float X, Y, Z, u, v;
+  bool valid;
+};
+
+__device__ __forceinline__ Pt load_pt(const Args& a, int s, int n) {
+  const size_t o = static_cast<size_t>(s) * a.N + n;
+  return Pt{__ldg(a.Xw + 3 * o), __ldg(a.Xw + 3 * o + 1), __ldg(a.Xw + 3 * o + 2),
+            __ldg(a.uv + 2 * o), __ldg(a.uv + 2 * o + 1), a.valid[o] != 0};
+}
+
+// consensus()'s terms of one point: the inlier test at `gate` and the
+// MSAC residual (0 on an invalid slot)
+__device__ __forceinline__ float point_res(const Cam& c, const float* T, const Pt& p, float gate,
+                                           float thr2, bool& in) {
+  float Xc[3];
+  transform(T, p.X, p.Y, p.Z, Xc);
+  const float z = Xc[2];
+  const float zs = away(z, 1e-9f);
+  const float du = sub(add(dvd(mul(c.fx, Xc[0]), zs), c.cx), p.u);
+  const float dv = sub(add(dvd(mul(c.fy, Xc[1]), zs), c.cy), p.v);
+  const float e2 = add(mul(du, du), mul(dv, dv));
+  in = (e2 < gate) && (z > 0.0f) && p.valid;
+  const float r2 = z > 0.0f ? (isnan(e2) ? e2 : fminf(e2, thr2)) : thr2;
+  return p.valid ? r2 : 0.0f;
+}
+
+__device__ __forceinline__ int warp_add(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// consensus() over N > 128 slots: the inliers at `gate` into mask (bytes,
+// if not null), their count into *count (if not null), and the MSAC score
+// summed by bw threads (if score is not null), every lane the same bits.
+__device__ void wide_consensus(const Args& a, const Cam& c, const float* T, int s, float gate,
+                               int bw, uint8_t* mask, int* count, float* score, int lane) {
+  const int nvec = a.N >> 2, tail = a.N & 3, per = bw >> 5;
+  float part[16];
+  int cnt = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    part[k] = 0.0f;
+    if (k >= per) continue;
+    const int t = lane + 32 * k;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int v = t; v < nvec; v += bw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = 4 * v + i;
+        bool in;
+        acc[i] = add(acc[i], point_res(c, T, load_pt(a, s, n), gate, a.thr2, in));
+        if (mask != nullptr) mask[n] = in;
+        cnt += in;
+      }
+    }
+    if (t < tail) {
+      const int n = 4 * nvec + t;
+      bool in;
+      acc[0] = add(acc[0], point_res(c, T, load_pt(a, s, n), gate, a.thr2, in));
+      if (mask != nullptr) mask[n] = in;
+      cnt += in;
+    }
+    part[k] = add(add(add(acc[0], acc[1]), acc[2]), acc[3]);
+  }
+  if (count != nullptr) *count = warp_add(cnt);
+  if (score != nullptr) {
+    // the shared-memory tree, offsets bw / 2 .. 32: thread lane + 32 k
+    // takes thread lane + 32 (k + o)
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      if (2 * o <= per) {
+#pragma unroll
+        for (int k = 0; k < o; ++k) part[k] = add(part[k], part[k + o]);
+      }
+    }
+    float v = part[0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = add(v, __shfl_xor_sync(kFull, v, o));
+    *score = v;
+  }
+  __syncwarp();
+}
+
+// gn_step's per-point terms of point n under T: J^T (J w)'s 21 lower
+// entries (H) or J^T (r w)'s 6 (g), as the plain path's products round them
+template <bool G>
+__device__ __forceinline__ void gn_terms(const Cam& c, const float* T, const Pt& p, float w,
+                                         float* out) {
+  const float nfx = -c.fx, nfy = -c.fy;
+  float Xc[3];
+  transform(T, p.X, p.Y, p.Z, Xc);
+  const float x = Xc[0], y = Xc[1], z = Xc[2];
+  const float inv_z = dvd(1.0f, away(z, 1e-9f));
+  const float zero = 0.0f;
+  const float Jpi[2][3] = {
+      {mul(c.fx, inv_z), zero, mul(mul(mul(nfx, x), inv_z), inv_z)},
+      {zero, mul(c.fy, inv_z), mul(mul(mul(nfy, y), inv_z), inv_z)}};
+  const float Jx[3][6] = {{1.0f, 0.0f, 0.0f, -zero, z, -y},
+                          {0.0f, 1.0f, 0.0f, -z, -zero, x},
+                          {0.0f, 0.0f, 1.0f, y, -x, -zero}};
+  float J[2][6];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      J[r][q] = fma_(Jpi[r][2], Jx[2][q], fma_(Jpi[r][1], Jx[1][q], mul(Jpi[r][0], Jx[0][q])));
+    }
+  }
+  if constexpr (G) {
+    const float r0 = sub(add(mul(mul(c.fx, x), inv_z), c.cx), p.u);
+    const float r1 = sub(add(mul(mul(c.fy, y), inv_z), c.cy), p.v);
+    const float rw0 = mul(r0, w), rw1 = mul(r1, w);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) out[i] = add(mul(J[0][i], rw0), mul(J[1][i], rw1));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int k = 0; k <= i; ++k) {
+        out[tri(i, k)] = fma_(J[1][i], mul(J[1][k], w), mul(J[0][i], mul(J[0][k], w)));
+      }
+    }
+  }
+}
+
+// One Gauss-Newton sum over the points (21 terms of H, or 6 of g) in the
+// plain path's split (bh threads x ct blocks), into tot[0 .. NT).
+template <bool G>
+__device__ void wide_gn_sum(const Args& a, const Cam& c, int s, const float* T,
+                            const uint8_t* sel, int bh, int ct, float* parts, float* tot,
+                            int lane) {
+  constexpr int NT = G ? 6 : 21;
+  const int nq = bh * ct, items = 4 * nq;
+  for (int base = 0; base < items; base += 32) {
+    const int it = base + lane;
+    const int q = it >> 2, i = it & 3;
+    float acc[NT];
+#pragma unroll
+    for (int k = 0; k < NT; ++k) acc[k] = 0.0f;
+    if (it < items) {
+      for (int n = q + nq * i; n < a.N; n += 4 * nq) {
+        float t[NT];
+        gn_terms<G>(c, T, load_pt(a, s, n), sel[n] ? 1.0f : 0.0f, t);
+#pragma unroll
+        for (int k = 0; k < NT; ++k) acc[k] = add(acc[k], t[k]);
+      }
+    }
+    // thread q's four accumulators, ((a0 + a1) + a2) + a3
+    const int g0 = lane & ~3;
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      const float a1 = __shfl_sync(kFull, acc[k], g0 + 1);
+      const float a2 = __shfl_sync(kFull, acc[k], g0 + 2);
+      const float a3 = __shfl_sync(kFull, acc[k], g0 + 3);
+      if (it < items && i == 0) parts[q * NT + k] = add(add(add(acc[k], a1), a2), a3);
+    }
+  }
+  __syncwarp();
+  if (lane < NT) {
+    float* col = parts + lane;
+    for (int b = 0; b < ct; ++b) {  // each block's tree over its bh threads
+      float* blk = col + b * bh * NT;
+      for (int o = bh >> 1; o > 0; o >>= 1) {
+        for (int y = 0; y < o; ++y) blk[y * NT] = add(blk[y * NT], blk[(y + o) * NT]);
+      }
+    }
+    float r = col[0];
+    if (ct > 1) {  // the last block: thread y adds blocks y, y + bh, ..., then a tree (bh <= 8)
+      float fin[8];
+#pragma unroll
+      for (int y = 0; y < 8; ++y) {
+        fin[y] = 0.0f;
+        if (y < bh) {
+          for (int b = y; b < ct; b += bh) fin[y] = add(fin[y], col[b * bh * NT]);
+        }
+      }
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) {
+        if (o < bh) {
+#pragma unroll
+          for (int y = 0; y < o; ++y) fin[y] = add(fin[y], fin[y + o]);
+        }
+      }
+      r = fin[0];
+    }
+    tot[lane] = r;
+  }
+  __syncwarp();
+}
+
+// lo_from over N > 128 slots: each round selects the inliers at its gate
+// into sel, then refines
+__device__ void wide_lo_chain(const Args& a, const Cam& c, int s, float* T, const float* gates,
+                              int rounds, uint8_t* sel, float* parts, float* tot, int lane) {
+  for (int r = 0; r < rounds; ++r) {
+    wide_consensus(a, c, T, s, gates[r], 32, sel, nullptr, nullptr, lane);
+    for (int it = 0; it < a.iters; ++it) {
+      wide_gn_sum<false>(a, c, s, T, sel, a.bh_H, a.ct_H, parts, tot, lane);
+      wide_gn_sum<true>(a, c, s, T, sel, a.bh_g, a.ct_g, parts, tot + 21, lane);
+      gn_solve(a, tot, T);
+    }
+  }
+}
+
+// A wide warp's shared memory: the DLT's scratch, or the Gauss-Newton
+// partials (kMaxParts x 21), their 27 sums, and a mask of N bytes.
+__host__ __device__ constexpr int wide_warp_floats(int N) {
+  return (kMaxParts * 21 + 32 > kDltSmem ? kMaxParts * 21 + 32 : kDltSmem) + (N + 3) / 4;
+}
+
+// store_chain over N > 128 slots; the strict inliers stay in mask, the
+// count and score in every lane
+__device__ void wide_store_chain(const Args& a, const Cam& c, int s, int at, const float* T,
+                                 uint8_t* mask, int& cnt, float& score, int lane) {
+  wide_consensus(a, c, T, s, a.thr2, a.bw_s, mask, &cnt, &score, lane);
+  const size_t o = static_cast<size_t>(s) * (2 * a.P + 1) + at;
+  if (lane == 0) {
+    float* dst = a.chain + o * kChain;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) dst[k] = T[k];
+    dst[16] = static_cast<float>(cnt);
+    dst[17] = score;
+  }
+  for (int n = lane; n < a.N; n += 32) a.cmask[o * a.N + n] = mask[n];
+}
+
+// top6 over N > 128 slots: each lane keeps its first 6 in the sort's order,
+// then 6 warp arg-max rounds over the lanes' heads
+__device__ void wide_top6(const Args& a, const float* noise, int s, int lane, int* idx) {
+  float bv[6];
+  int bi[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    bv[j] = 0.0f;
+    bi[j] = -1;
+  }
+  for (int n = lane; n < a.N; n += 32) {
+    float kv = a.valid[static_cast<size_t>(s) * a.N + n] ? noise[n] : -INFINITY;
+    int ki = n;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (ki >= 0 && (bi[j] < 0 || before(kv, ki, bv[j], bi[j]))) {
+        const float tv = bv[j];
+        const int ti = bi[j];
+        bv[j] = kv;
+        bi[j] = ki;
+        kv = tv;
+        ki = ti;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    float v = bv[0];
+    int i = bi[0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, v, o);
+      const int oi = __shfl_xor_sync(kFull, i, o);
+      if (oi >= 0 && (i < 0 || before(ov, oi, v, i))) {
+        v = ov;
+        i = oi;
+      }
+    }
+    idx[r] = i;
+    if (bi[0] == i) {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        bv[j] = bv[j + 1];
+        bi[j] = bi[j + 1];
+      }
+      bi[5] = -1;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32) pnp_hypotheses_wide_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.y;
+  const int w = blockIdx.x * kWarps + warp;
+  const int n_chain = 2 * a.P;
+  if (w >= n_chain + a.H + a.P) return;
+  const Cam c = load_cam(a.K);
+  float* sm = smem + warp * wide_warp_floats(a.N);
+  float* tot = sm + kMaxParts * 21;
+  uint8_t* mask = reinterpret_cast<uint8_t*>(sm + wide_warp_floats(0));
+  float T[16];
+  if (w < n_chain) {  // lo_from(T_init[i], strict or annealed)
+    const float* T0 = a.T_init + (static_cast<size_t>(s) * a.P + (w >> 1)) * 16;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) T[k] = T0[k];
+    const bool annealed = w & 1;
+    wide_lo_chain(a, c, s, T, annealed ? a.anneal : a.strict,
+                  annealed ? a.n_anneal : a.n_strict, mask, sm, tot, lane);
+    int cnt;
+    float score;
+    wide_store_chain(a, c, s, w, T, mask, cnt, score, lane);
+    return;
+  }
+  const int h = w - n_chain;
+  if (h < a.H) {
+    int idx[6];
+    wide_top6(a, a.noise + (static_cast<size_t>(s) * a.H + h) * a.N, s, lane, idx);
+    if (lane < 6) {
+      int mine = idx[0];
+#pragma unroll
+      for (int q = 1; q < 6; ++q) mine = lane == q ? idx[q] : mine;
+      a.idx[(static_cast<size_t>(s) * a.H + h) * 6 + lane] = mine;
+    }
+    dlt(a, c, s, idx, sm, lane, T);
+  } else {
+    const float* T0 = a.T_init + (static_cast<size_t>(s) * a.P + (h - a.H)) * 16;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) T[k] = T0[k];
+  }
+  float score;
+  wide_consensus(a, c, T, s, a.thr2, a.bw_h, nullptr, nullptr, &score, lane);
+  if (lane == 0) {
+    float* dst = a.hyp + (static_cast<size_t>(s) * (a.H + a.P) + h) * kHyp;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) dst[k] = T[k];
+    dst[16] = finite16(T) ? score : INFINITY;
+  }
+}
+
+__global__ void __launch_bounds__(32) pnp_select_wide_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  const int s = blockIdx.x;
+  const int n_hyp = a.H + a.P;
+  const Cam c = load_cam(a.K);
+  float* tot = smem + kMaxParts * 21;
+  uint8_t* mask = reinterpret_cast<uint8_t*>(smem + wide_warp_floats(0));
+  const float* hyp = a.hyp + static_cast<size_t>(s) * n_hyp * kHyp;
+  float bv = 0.0f;
+  int bi = -1;
+  for (int h = lane; h < n_hyp; h += 32) {
+    const float v = hyp[h * kHyp + 16];
+    if (bi < 0 || less_or_nan(v, h, bv, bi)) {
+      bv = v;
+      bi = h;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, bv, o);
+    const int oi = __shfl_xor_sync(kFull, bi, o);
+    if (oi >= 0 && (bi < 0 || less_or_nan(ov, oi, bv, bi))) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if (lane == 0) a.best[s] = bi;
+  float Tb[16], Tw[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) Tb[k] = Tw[k] = hyp[bi * kHyp + k];
+  uint8_t* inliers = a.inliers + static_cast<size_t>(s) * a.N;
+  // finals[0]: the winner as it is; its strict inliers go to the output
+  // until a chain beats it
+  float score;
+  int count;
+  wide_consensus(a, c, Tb, s, a.thr2, a.bw_s, mask, &count, &score, lane);
+  for (int n = lane; n < a.N; n += 32) inliers[n] = mask[n];
+  __syncwarp();  // every lane has read the mask before the chain writes it
+  // finals[1]: the LO chain from the winner
+  wide_lo_chain(a, c, s, Tw, a.strict, a.n_strict, mask, smem, tot, lane);
+  int count_w;
+  float score_w;
+  wide_store_chain(a, c, s, 2 * a.P, Tw, mask, count_w, score_w, lane);
+  const size_t base = static_cast<size_t>(s) * (2 * a.P + 1);
+  float Tf[16];
+  int from = -1;
+  const bool take_w = finite16(Tw) && (count_w > count || (count_w == count && score_w < score));
+#pragma unroll
+  for (int k = 0; k < 16; ++k) Tf[k] = take_w ? Tw[k] : Tb[k];
+  if (take_w) {
+    from = 2 * a.P;
+    count = count_w;
+    score = score_w;
+  }
+  float Tc[16];
+  for (int i = 0; i < 2 * a.P; ++i) {  // the strict chains from the priors, then the rescues
+    const bool rescue = i >= a.P;
+    const int at = rescue ? 2 * (i - a.P) + 1 : 2 * i;
+    const float* r = a.chain + (base + at) * kChain;
+    const int cnt = static_cast<int>(r[16]);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) Tc[k] = r[k];
+    const bool better =
+        finite16(Tc) &&
+        (rescue ? static_cast<float>(cnt) >= add(mul(a.margin, static_cast<float>(count)), 2.0f)
+                : cnt > count || (cnt == count && r[17] < score));
+    if (better) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) Tf[k] = Tc[k];
+      from = at;
+      count = cnt;
+      if (!rescue) score = r[17];
+    }
+  }
+  __syncwarp();
+  int n_valid = 0;
+  for (int n = lane; n < a.N; n += 32) {
+    if (from >= 0) inliers[n] = from == 2 * a.P ? mask[n] : a.cmask[(base + from) * a.N + n];
+    n_valid += a.valid[static_cast<size_t>(s) * a.N + n] != 0;
+  }
+  n_valid = warp_add(n_valid);
+  if (lane == 0) {
+    const float n_inl = static_cast<float>(count);
+    const float nv = static_cast<float>(n_valid);
+    a.ratio[s] = dvd(n_inl, fmaxf(nv, 1.0f));
+    const float floor_ = fmaxf(mul(0.1f, nv), 6.0f);
+    a.ok[s] = n_inl >= floor_ && finite16(Tf);
+    float* out = a.T_wc + static_cast<size_t>(s) * 16;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float col[3] = {Tf[i], Tf[4 + i], Tf[8 + i]};
+      const float t[3] = {Tf[3], Tf[7], Tf[11]};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) out[4 * i + k] = col[k];
+      out[4 * i + 3] = -(a.single ? dot_halves<3>(col, t) : dot_chain<0, 3>(col, t));
+    }
+    out[12] = 0.0f;
+    out[13] = 0.0f;
+    out[14] = 0.0f;
+    out[15] = 1.0f;
+  }
+}
+
 }  // namespace
 
 // Xw (S, N, 3), uv (S, N, 2), valid (S, N) bool, noise (S, H, N) float32
 // device buffers; T_init (S, P, 4, 4) or null with P = 0; the LO gates
 // (squared px, float32 as the plain path compares them) on the host; the
-// reduction threads of the Gauss-Newton sums (1, 2, 4 or 8); the scratch
-// and outputs as Args lays them out. Returns cudaGetLastError() after the
-// launches.
+// split of the Gauss-Newton sums (threads a block: 1, 2, 4 or 8 up to N =
+// 128; blocks: 1 up to 128) and, past N = 128, of the sums over the slots
+// (geometry/pnp.py::gn_plan, sum_width); the scratch and outputs as Args
+// lays them out. Returns cudaGetLastError() after the launches.
 extern "C" int svo_ransac_pnp(const void* K, const void* Xw, const void* uv, const void* valid,
                               const void* noise, const void* T_init, int S, int N, int H, int P,
                               int iters, const float* strict, int n_strict, const float* anneal,
                               int n_anneal, float thr2, float margin, int bh_H, int bh_g,
+                              int ct_H, int ct_g, int bw_h, int bw_s,
                               void* hyp, void* chain, void* cmask, void* best, void* idx,
                               void* T_wc, void* inliers, void* ratio, void* ok, void* stream) {
-  const auto bad_bh = [](int bh) { return bh != 1 && bh != 2 && bh != 4 && bh != 8; };
-  if (S < 1 || S > 65535 || N < 6 || N > kMaxN || H < 1 || P < 0 ||
+  const bool wide = N > kMaxN;
+  const auto pow2 = [](int v, int hi) { return v >= 1 && v <= hi && (v & (v - 1)) == 0; };
+  // a Gauss-Newton sum's split: narrow, 1-8 threads; wide, at most
+  // kMaxParts threads, 8 a block where it spans blocks
+  const auto bad_gn = [&](int bh, int ct) {
+    if (!wide) return !pow2(bh, 8) || ct != 1;
+    return !pow2(bh, kMaxParts) || ct < 1 || bh * ct > kMaxParts || (ct > 1 && bh > 8);
+  };
+  const auto bad_bw = [&](int bw) { return wide && (!pow2(bw, 512) || bw < 32); };
+  if (S < 1 || S > 65535 || N < 6 || N > kMaxWideN || H < 1 || P < 0 ||
       (P > 0) != (T_init != nullptr) || iters < 0 || n_strict < 0 ||
-      n_strict > kMaxSchedule || n_anneal < 0 || n_anneal > kMaxSchedule || bad_bh(bh_H) ||
-      bad_bh(bh_g)) {
+      n_strict > kMaxSchedule || n_anneal < 0 || n_anneal > kMaxSchedule ||
+      bad_gn(bh_H, ct_H) || bad_gn(bh_g, ct_g) || bad_bw(bw_h) || bad_bw(bw_s)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a = {};
@@ -996,6 +1475,10 @@ extern "C" int svo_ransac_pnp(const void* K, const void* Xw, const void* uv, con
   a.single = S == 1;
   a.bh_H = bh_H;
   a.bh_g = bh_g;
+  a.ct_H = ct_H;
+  a.ct_g = ct_g;
+  a.bw_h = bw_h;
+  a.bw_s = bw_s;
   for (int r = 0; r < n_strict; ++r) a.strict[r] = strict[r];
   for (int r = 0; r < n_anneal; ++r) a.anneal[r] = anneal[r];
   a.thr2 = thr2;
@@ -1011,10 +1494,19 @@ extern "C" int svo_ransac_pnp(const void* K, const void* Xw, const void* uv, con
   a.ok = static_cast<uint8_t*>(ok);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tasks = 2 * P + H + P;
+  const dim3 grid1((tasks + kWarps - 1) / kWarps, S);
+  if (wide) {
+    // a warp's scratch: 12.9 KB at N = 2048, two warps under a block's 48 KB
+    const int bytes = wide_warp_floats(N) * static_cast<int>(sizeof(float));
+    pnp_hypotheses_wide_kernel<<<grid1, kWarps * 32, kWarps * bytes, st>>>(a);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pnp_select_wide_kernel<<<S, 32, bytes, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   // a warp's scratch: 13.6 KB at N = 128, two warps under a block's 48 KB
   const int bytes = warp_floats(N) * static_cast<int>(sizeof(float));
-  pnp_hypotheses_kernel<<<dim3((tasks + kWarps - 1) / kWarps, S), kWarps * 32, kWarps * bytes,
-                          st>>>(a);
+  pnp_hypotheses_kernel<<<grid1, kWarps * 32, kWarps * bytes, st>>>(a);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   pnp_select_kernel<<<S, 32, bytes, st>>>(a);

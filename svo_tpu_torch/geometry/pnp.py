@@ -16,14 +16,16 @@ S streams cost the launches of one.
 
 ransac_pnp on a CUDA tensor launches the hand-written kernel
 csrc/ransac_pnp.cu twice (hypotheses and the prior chains, then the
-winner's chain and the choice) for all streams; on a CPU tensor it runs
-ransac_pnp_ref, the plain version (the CPU tests' path, and what the card
-tests hold the kernel against).
+winner's chain and the choice) for all streams, at 6 to 2,048
+correspondences a stream; on a CPU tensor it runs ransac_pnp_ref, the plain
+version (the CPU tests' path, and what the card tests hold the kernel
+against).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -249,12 +251,15 @@ def ransac_pnp_ref(
     return PnPResult(T_wc=se3.inverse(T_final), inliers=inliers, inlier_ratio=ratio, ok=ok)
 
 
-# The kernel's limits: 4 slots a lane of a warp (every configuration's
-# max_features); the LO schedules it holds (csrc/ransac_pnp.cu's kMaxN,
-# kMaxSchedule); streams a grid column.
-KERNEL_MAX_N = 128
+# The kernel's limits (csrc/ransac_pnp.cu's kMaxWideN, kMaxSchedule,
+# kMaxParts): correspondences a stream (up to NARROW_N, 4 slots a lane of a
+# warp; past it the wide path); the LO schedules it holds; streams a grid
+# column; the threads of a Gauss-Newton sum it repeats.
+KERNEL_MAX_N = 2048
+NARROW_N = 128
 KERNEL_MAX_SCHEDULE = 8
 KERNEL_MAX_STREAMS = 65535
+KERNEL_MAX_PARTS = 128
 
 
 class KernelParams(NamedTuple):
@@ -284,33 +289,95 @@ def kernel_params(params: RansacParams) -> KernelParams:
     )
 
 
-def gn_split(S: int, N: int, c: int) -> int:
-    """Threads that PyTorch's CUDA reduction splits each output of
-    _gn_refine's sum over the points among: the sum of (S, N, *) terms into
-    (S, c) outputs over dim -3, c = 36 for H and 6 for g (setReduceConfig
-    in ATen/native/cuda/Reduce.cuh, read for this shape: the outputs are the
-    fastest axis, vectorised by v; a block of 512 / v threads; the points
-    are split among block_height threads when each would otherwise add 16
-    times block_height of them or more). 1: one thread adds all N. The
-    kernel sums in the same order (csrc/ransac_pnp.cu column_sum)."""
+# The H100 SXM's multiprocessors and threads a multiprocessor: a reduction
+# over enough points spans blocks by them (gn_plan)
+H100_SMS = 132
+_THREADS_PER_SM = 2048
+
+
+def _block_dims(dim0: int, dim1: int, threads: int) -> tuple[int, int]:
+    """ReduceConfig::set_block_dimension: (block_width, block_height) of a
+    block of at most `threads` over dim0 x dim1."""
+    def pow2(n):
+        return 1 << (max(n, 1).bit_length() - 1) if n < threads else threads
+
+    width = min(pow2(dim0), 32)
+    height = min(pow2(dim1), threads // width)
+    return min(pow2(dim0), threads // height), height
+
+
+def gn_plan(S: int, N: int, c: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """How PyTorch's CUDA reduction splits each output of _gn_refine's sum
+    over the points: (threads a block along the points, blocks). The sum
+    of (S, N, *) terms into (S, c) outputs over dim -3, c = 36 for H and 6
+    for g (setReduceConfig in ATen/native/cuda/Reduce.cuh, read for this
+    shape: the outputs are the fastest axis, vectorised by v; a block of
+    512 / v threads; the points are split among block_height threads when
+    each would otherwise add min(16 block_height, 256) of them or more, and
+    among blocks as well when each thread would still add 256 or more and
+    the grid is small against the card's `sms` multiprocessors). (1, 1):
+    one thread adds all N. The kernel sums in the same order
+    (csrc/ransac_pnp.cu column_sum, wide_gn_sum)."""
     v = 4
     while c % v:
         v //= 2
     threads = 512 // v
-    dim0, dim1 = S * c // v, N
+    outputs = S * c // v
+    width, height = _block_dims(outputs, N, threads)
+    if N < min(16 * height, 256):
+        return 1, 1
+    per = -(-N // height)
+    grid = -(-outputs // width)
+    target = sms * (_THREADS_PER_SM // (width * height))
+    if per >= 256 and grid <= target:
+        ctas = max(min(-(-target // grid), -(-per // 16)), -(-per // 256))
+        return height, ctas
+    return height, 1
 
-    def pow2(n):
-        return 1 << (n.bit_length() - 1) if n < threads else threads
 
-    width = min(pow2(dim0), 32)
-    height = min(pow2(dim1), threads // width)
-    return height if N >= 16 * height else 1
+def gn_split(S: int, N: int, c: int) -> int:
+    """Threads along the points of each block of _gn_refine's sum (gn_plan);
+    up to N = 128 one block holds them all."""
+    return gn_plan(S, N, c)[0]
+
+
+def sum_width(outputs: int, N: int) -> int:
+    """The threads among which PyTorch's CUDA reduction splits each output
+    of a torch.sum over the contiguous last axis of a float32 (outputs, N),
+    N >= 128 (setReduceConfig: the input vectorised by 4, the threads along
+    it a block_width); the plain path's MSAC scores sum (S, H + P, N) this
+    way, a chain's score (S, N). ValueError where the sum would also be
+    split among warps (a thread adding min(16 block_height, 256) values or
+    more), which the kernel does not repeat."""
+    width, height = _block_dims(N // 4, outputs, 512)
+    if -(-N // width) >= min(16 * height, 256):
+        raise ValueError(f"a sum of {N} slots into {outputs} outputs splits among warps")
+    return width
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_split(S: int, N: int, H: int, P: int, sms: int = H100_SMS) -> tuple:
+    """The kernel's reduction arguments: (bh_H, bh_g, ct_H, ct_g, bw_h,
+    bw_s), the Gauss-Newton sums' threads and blocks (gn_plan) and, past
+    NARROW_N, the sums over the slots' widths (sum_width; 32 unused up to
+    it). ValueError for a split the kernel does not repeat."""
+    (bh_H, ct_H), (bh_g, ct_g) = gn_plan(S, N, 36, sms), gn_plan(S, N, 6, sms)
+    if N <= NARROW_N:
+        return bh_H, bh_g, 1, 1, 32, 32
+    for bh, ct in ((bh_H, ct_H), (bh_g, ct_g)):
+        if bh * ct > KERNEL_MAX_PARTS or (ct > 1 and bh > 8):
+            raise ValueError(f"a Gauss-Newton sum of {S} x {N} points splits {bh} x {ct} ways")
+    return bh_H, bh_g, ct_H, ct_g, sum_width(S * (H + P), N), sum_width(S, N)
 
 
 def kernel_shapes(K, Xw, uv, valid, noise, params: RansacParams, T_init=None):
     """(S, N, H, P) of a kernel call, or ValueError naming the limit the
     call passes: float32 and bool inputs of one leading shape, 6 <= N <=
-    128, at most 8 rounds in either LO schedule, 1 to 65535 streams."""
+    2048, at most 8 rounds in either LO schedule, 1 to 65535 streams."""
     H = params.num_hypotheses
     lead = tuple(Xw.shape[:-2])
     N = Xw.shape[-2] if Xw.dim() >= 2 else 0
@@ -338,6 +405,7 @@ def kernel_shapes(K, Xw, uv, valid, noise, params: RansacParams, T_init=None):
     for name, n in (("lo_rounds", params.lo_rounds), ("lo_anneal", len(params.lo_anneal))):
         if not 0 <= n <= KERNEL_MAX_SCHEDULE:
             raise ValueError(f"the kernel takes at most {KERNEL_MAX_SCHEDULE} {name}, got {n}")
+    kernel_split(S, N, H, P)
     return S, N, H, P
 
 
@@ -372,6 +440,8 @@ def ransac_pnp_kernel(K, Xw, uv, valid, noise, params: RansacParams, T_init=None
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA device, not {dev}")
     kp = kernel_params(params)
+    split = kernel_split(S, N, H, P, _sms(dev.index if dev.index is not None
+                                          else torch.cuda.current_device()))
     lib = _build.load()
     lead = tuple(Xw.shape[:-2])
     K, Xw, uv, valid, noise = (t.contiguous() for t in (K, Xw, uv, valid, noise))
@@ -392,12 +462,13 @@ def ransac_pnp_kernel(K, Xw, uv, valid, noise, params: RansacParams, T_init=None
             K.data_ptr(), Xw.data_ptr(), uv.data_ptr(), valid.data_ptr(), noise.data_ptr(),
             T0.data_ptr() if P else None, S, N, H, P, kp.iters,
             floats(kp.strict), len(kp.strict), floats(kp.anneal), len(kp.anneal),
-            kp.thr2, kp.margin, gn_split(S, N, 36), gn_split(S, N, 6), hyp.data_ptr(), chain.data_ptr(), cmask.data_ptr(),
+            kp.thr2, kp.margin, *split, hyp.data_ptr(), chain.data_ptr(), cmask.data_ptr(),
             best.data_ptr(), idx.data_ptr(), T_wc.data_ptr(), inliers.data_ptr(),
             ratio.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, code, "ransac_pnp")
     ransac_pnp.launches += 2
+    ransac_pnp.slots += S * N
     result = PnPResult(T_wc=T_wc, inliers=inliers, inlier_ratio=ratio, ok=ok)
     if not stages:
         return result
@@ -434,3 +505,4 @@ def ransac_pnp(
 
 
 ransac_pnp.launches = 0  # kernel launches since the last reset
+ransac_pnp.slots = 0     # correspondence slots handed to the kernel (S x N a call) since then

@@ -343,8 +343,10 @@ def step_body(
 
     With the tracer on (utils/tracing.py), the step marks where each of
     its stages (tracing.STAGES) begins and where it ends: pyramid; klt (the
-    temporal track and its forward-backward check); pnp (ransac_pnp, the
-    motion gates, the purge); replenish; window_ba; write (the rest)."""
+    temporal track and its forward-backward check); pnp (the map gather,
+    the noise draw, the prior's inverse); pnp_kernel (ransac_pnp from its
+    first launch, the motion gates, the purge); replenish; window_ba;
+    write (the rest)."""
     if kf_mode not in ("dynamic", "never", "always"):
         raise ValueError(f"kf_mode {kf_mode!r}")
     dev = left.device
@@ -422,9 +424,10 @@ def step_body(
     rng, noise = split_gumbel(state.rng, (cfg.ransac.num_hypotheses, Xw.shape[-2]))
     if pnp_noise is not None:
         noise = pnp_noise
+    T_prior = se3.inverse(state.pose)
+    mark("pnp_kernel")
     pres = ransac_pnp(
-        camera.K, Xw, tracked.pos, tracked.valid, noise, cfg.ransac,
-        T_init=se3.inverse(state.pose),
+        camera.K, Xw, tracked.pos, tracked.valid, noise, cfg.ransac, T_init=T_prior,
     )
     pnp_ok = pres.ok
     if cfg.tracking.max_step_rot_deg > 0:

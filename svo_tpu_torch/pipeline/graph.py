@@ -70,10 +70,11 @@ of the same step. A caller that keeps a state across a call clones it
 holds its own buffers and pool; both go with the step.
 
 Launch counts: a kernel wrapper counts its launches when it runs, which a
-replay does not do. So a capture records each wrapper's count before and
-after, puts the count back (a capture launches nothing), and each replay
-adds what its key's capture recorded: a captured run counts what the eager
-loop counts.
+replay does not do. So a capture records each counter's value before and
+after (each wrapper's launches, and ransac_pnp.slots, the correspondence
+slots handed to the PnP kernel), puts it back (a capture launches
+nothing), and each replay adds what its key's capture recorded: a captured
+run counts what the eager loop counts.
 
 Tracing (utils/tracing.py): a call's spans are load, pre, key and replay
 (capture at a graph's first occurrence). With the tracer on when a graph
@@ -103,6 +104,10 @@ from svo_tpu_torch.utils import tracing
 
 # the kernel wrappers that count their launches (`.launches`)
 COUNTED = (extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp)
+# every counter a replay adds to, by its name in launches_per_replay: each
+# wrapper's launches (under the wrapper's name), and the PnP kernel's slots
+COUNTERS = {f.__name__: (f, "launches") for f in COUNTED}
+COUNTERS["ransac_pnp.slots"] = (ransac_pnp, "slots")
 
 # the first stage's graph, beside the keys of the second
 PRE = "pre"
@@ -172,7 +177,7 @@ class StepGraph:
 
     After a graph's capture on the card: capture_s[k], the host seconds of
     its capture and instantiation (k a key, or PRE for the first stage);
-    launches_per_replay[k], each counted wrapper's launches in one replay.
+    launches_per_replay[k], what one replay adds to each of COUNTERS.
     graphs: the graphs captured so far, by the same names."""
 
     def __init__(self, run, check, device, frame_dtype: torch.dtype | None = None,
@@ -248,8 +253,9 @@ class StepGraph:
             with tracing.span("replay"):
                 tracing.replayed(self._marks.get(name))
                 self.graphs[name].replay()
-            for f in COUNTED:
-                f.launches += self.launches_per_replay[name][f.__name__]
+            for counter, n in self.launches_per_replay[name].items():
+                obj, attr = COUNTERS[counter]
+                setattr(obj, attr, getattr(obj, attr) + n)
         else:
             with tracing.span("capture"):
                 self._capture(name, body)
@@ -264,7 +270,7 @@ class StepGraph:
         with torch.cuda.stream(stream), tracing.eager(name, self.device):
             body()
         main.wait_stream(stream)
-        before = [f.launches for f in COUNTED]
+        before = {k: getattr(obj, attr) for k, (obj, attr) in COUNTERS.items()}
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # no cyclic garbage collection inside the capture: a dead engine's
@@ -279,9 +285,10 @@ class StepGraph:
         finally:
             if collecting:
                 gc.enable()
-            recorded = {f.__name__: f.launches - b for f, b in zip(COUNTED, before)}
-            for f, b in zip(COUNTED, before):
-                f.launches = b
+            recorded = {}
+            for k, (obj, attr) in COUNTERS.items():
+                recorded[k] = getattr(obj, attr) - before[k]
+                setattr(obj, attr, before[k])
         self.capture_s[name] = time.perf_counter() - t0
         self.launches_per_replay[name] = recorded
         self._marks[name] = marks

@@ -61,6 +61,12 @@ drain() returns and clears the records (JSON-ready; times in host ns):
                    name and request and the graph's key; frames: [[[stage, t_ns], ...],
                    ...], one list a frame step (a cadenced chunk has one a frame)
     marks_skipped: replays whose marks had not completed when the graph replayed again
+    counters:      with the tracer on and only where one moved: {"<wrapper>.launches":
+                   n, "ransac_pnp.slots": n}, what each of the frame step's counters
+                   (pipeline/graph.COUNTERS: each kernel wrapper's launches, the
+                   correspondence slots handed to the PnP kernel) added since the
+                   tracer's last reset or drain, replays included; slots over half the
+                   launches is S x N, the size the PnP kernel ran at
 
 Drain a long run now and then: every interval and eager mark holds its
 events until it is read. The records are one process's, written by the
@@ -76,8 +82,10 @@ import torch
 
 PREFIX = "svo."
 # the frame step's stages in order (pipeline/frontend.step_body), and the
-# mark that closes the step
-STAGES = ("pyramid", "klt", "pnp", "replenish", "window_ba", "write")
+# mark that closes the step; "pnp" is the caller's ops before ransac_pnp,
+# "pnp_kernel" the PnP kernel's launches and what follows them up to
+# "replenish"
+STAGES = ("pyramid", "klt", "pnp", "pnp_kernel", "replenish", "window_ba", "write")
 END = "end"
 
 _NOOP = contextlib.nullcontext()
@@ -92,6 +100,7 @@ _skipped = 0
 _counts: dict = {}     # calls so far, by name (the default request)
 _anchors: dict = {}    # device -> (event, host ns)
 _sink = None           # the _Marks that mark() appends to
+_base: dict = {}       # the counters' values at the last reset or drain
 
 
 def _device(device) -> torch.device:
@@ -143,15 +152,23 @@ def disable() -> None:
     _on = False
 
 
+def _counters() -> dict:
+    """The frame step's counters now, by "<wrapper>.<attribute>"."""
+    from svo_tpu_torch.pipeline.graph import COUNTERS  # graph imports this module
+
+    return {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in COUNTERS.values()}
+
+
 def reset() -> None:
     """Drop every record and unread mark, and (on) anchor the devices again."""
-    global _skipped
+    global _skipped, _base
     for m in _pending:
         m.owner = None
     for lst in (_spans, _intervals, _samples, _pending):
         lst.clear()
     _skipped = 0
     _counts.clear()
+    _base = _counters() if _on else {}
     devices = set(_anchors)
     _anchors.clear()
     if not _on:
@@ -327,7 +344,7 @@ def replayed(marks) -> None:
 
 def drain() -> dict:
     """Every record so far (module docstring), read and cleared."""
-    global _skipped
+    global _skipped, _base
     for d in _anchors:
         _sync(d)
     for m in _pending:
@@ -340,6 +357,12 @@ def drain() -> dict:
         "marks": list(_samples),
         "marks_skipped": _skipped,
     }
+    if _on:
+        now = _counters()
+        moved = {k: v - _base.get(k, 0) for k, v in now.items() if v != _base.get(k, 0)}
+        if moved:
+            out["counters"] = moved
+        _base = now
     for lst in (_spans, _intervals, _samples, _pending):
         lst.clear()
     _skipped = 0

@@ -194,11 +194,11 @@ def test_unsupported_shape_raises_before_any_launch(monkeypatch, case):
     pnp.ransac_pnp.launches = 0
     K, Xw, uv, valid, noise, T_init = batch([1, 2], "cpu")
     params = RansacParams()
-    want = {"N": "N <= 128", "dtype": "float32", "rounds": "at most 8",
+    want = {"N": "N <= 2048", "dtype": "float32", "rounds": "at most 8",
             "T_init": "T_init must be", "streams": "1 to 65535", "device": "CUDA device"}[case]
-    if case == "N":
-        Xw, uv, valid = (torch.cat([t, t[:, :1]], dim=1) for t in (Xw, uv, valid))
-        noise = torch.cat([noise, noise[..., :1]], dim=-1)
+    if case == "N":  # one slot past the wide path's 2048
+        Xw, uv, valid = (torch.cat([t] * 16 + [t[:, :1]], dim=1) for t in (Xw, uv, valid))
+        noise = torch.cat([noise] * 16 + [noise[..., :1]], dim=-1)
     elif case == "dtype":
         Xw = Xw.double()
     elif case == "rounds":
@@ -248,6 +248,90 @@ def test_gn_split_is_the_reduction_read_on_the_card(S, bh_H, bh_g):
     (H100, PyTorch 2.11: each sum held against the orders of 1, 2, 4 and 8
     threads)."""
     assert (pnp.gn_split(S, N, 36), pnp.gn_split(S, N, 6)) == (bh_H, bh_g)
+
+
+# The splits ATen's setReduceConfig picks on the H100 (132 multiprocessors)
+# for the plain path's sums past 128 slots, as the kernel takes them:
+# (bh_H, bh_g, ct_H, ct_g, bw_h, bw_s); the card tests hold torch.sum to them.
+WIDE_SPLITS = {
+    (1, 256): (16, 128, 1, 1, 32, 64), (1, 1024): (16, 128, 1, 1, 32, 256),
+    (1, 2048): (16, 128, 1, 1, 32, 512), (8, 256): (4, 16, 1, 1, 32, 64),
+    (8, 1024): (4, 16, 16, 1, 32, 64), (8, 2048): (4, 16, 32, 1, 32, 64),
+    (16, 2048): (4, 8, 32, 16, 32, 32),
+}
+
+
+@pytest.mark.parametrize("S, n", sorted(WIDE_SPLITS))
+def test_wide_splits_are_setreduceconfigs(S, n):
+    """The kernel's reduction arguments past 128 slots: the Gauss-Newton
+    sums' threads and blocks, the slot sums' widths; up to 128 the narrow
+    path's (gn_split, one block, widths unused)."""
+    assert pnp.kernel_split(S, n, 128, 1) == WIDE_SPLITS[S, n]
+    assert pnp.kernel_split(S, 128, 128, 1) == (pnp.gn_split(S, 128, 36),
+                                                 pnp.gn_split(S, 128, 6), 1, 1, 32, 32)
+
+
+def emulate_slot_sum(x: np.ndarray, bw: int) -> np.ndarray:
+    """torch.sum(x, -1) of a contiguous float32 (..., N), N >= 128, in the
+    order the kernel repeats (csrc/ransac_pnp.cu wide_consensus): bw
+    threads, thread t adding 4-vectors t, t + bw, ... into four
+    accumulators and tail element 4 (N // 4) + t into the first, then a
+    tree of offsets bw / 2 .. 1."""
+    x = x.astype(np.float32)
+    N = x.shape[-1]
+    nvec, tail = N // 4, N % 4
+    zero = np.zeros(x.shape[:-1], np.float32)
+    parts = []
+    for t in range(bw):
+        acc = [zero.copy() for _ in range(4)]
+        for v in range(t, nvec, bw):
+            for i in range(4):
+                acc[i] = acc[i] + x[..., 4 * v + i]
+        if t < tail:
+            acc[0] = acc[0] + x[..., 4 * nvec + t]
+        parts.append(((acc[0] + acc[1]) + acc[2]) + acc[3])
+    off = bw // 2
+    while off:
+        for t in range(off):
+            parts[t] = parts[t] + parts[t + off]
+        off //= 2
+    return parts[0]
+
+
+def emulate_point_sum(x: np.ndarray, bh: int, ct: int) -> np.ndarray:
+    """torch.sum(x, -3) of a contiguous float32 (..., N, a, b) in the order
+    the kernel repeats (wide_gn_sum): bh threads in each of ct blocks,
+    thread q = y + bh c adding points q, q + bh ct, ... into four
+    accumulators; each block's tree over y; with ct > 1, thread y adding
+    blocks y, y + bh, ... from 0, then a tree over y."""
+    x = x.astype(np.float32)
+    N, nq = x.shape[-3], bh * ct
+    zero = np.zeros(x.shape[:-3] + x.shape[-2:], np.float32)
+    parts = []
+    for q in range(nq):
+        acc = [zero.copy() for _ in range(4)]
+        for k, n in enumerate(range(q, N, nq)):
+            acc[k % 4] = acc[k % 4] + x[..., n, :, :]
+        parts.append(((acc[0] + acc[1]) + acc[2]) + acc[3])
+
+    def tree(v):
+        off = len(v) // 2
+        while off:
+            for y in range(off):
+                v[y] = v[y] + v[y + off]
+            off //= 2
+        return v[0]
+
+    blocks = [tree(parts[c * bh:(c + 1) * bh]) for c in range(ct)]
+    if ct == 1:
+        return blocks[0]
+    fin = []
+    for y in range(bh):
+        acc = zero.copy()
+        for c in range(y, ct, bh):
+            acc = acc + blocks[c]
+        fin.append(acc)
+    return tree(fin)
 
 
 def test_plain_stages_end_where_ransac_pnp_ref_ends():
@@ -426,3 +510,128 @@ def test_captured_replay_equals_eager_and_counts_launches():
         want = pnp.ransac_pnp(*fresh[:5], params, T_init=fresh[5])
         torch.cuda.synchronize()
         assert not _unequal(out, want, RESULT)
+
+
+# ---- on the card, past 128 slots (the wide path) --------------------------------
+
+WIDE_N = (256, 1024, 2048)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("n", WIDE_N)
+@pytest.mark.parametrize("S", [1, 8])
+def test_plain_sums_follow_the_wide_splits(S, n):
+    """The plain path's sums past 128 slots, torch.sum on the card, bit for
+    bit in the orders the kernel repeats: the MSAC score over the slots
+    (S (H + P) outputs), a chain's score (S outputs) and the Gauss-Newton
+    sums of H (36 a stream) and g (6); S = 1 with no stream axis, as
+    StereoVO's frame step has it."""
+    dev = _card()
+    bh_H, bh_g, ct_H, ct_g, bw_h, bw_s = pnp.kernel_split(S, n, 128, 1)
+    rng = np.random.default_rng(17 + S + n)
+    lead = (S,) if S > 1 else ()
+    cases = [
+        (rng.uniform(0, 64, lead + (129, n)), lambda x: emulate_slot_sum(x, bw_h), -1),
+        (rng.uniform(0, 64, lead + (n,)), lambda x: emulate_slot_sum(x, bw_s), -1),
+        (rng.normal(0, 1e3, lead + (n, 6, 6)), lambda x: emulate_point_sum(x, bh_H, ct_H), -3),
+        (rng.normal(0, 1e2, lead + (n, 6, 1)), lambda x: emulate_point_sum(x, bh_g, ct_g), -3),
+    ]
+    for x, emulate, dim in cases:
+        x = x.astype(np.float32)
+        got = torch.sum(torch.from_numpy(x).to(dev), dim=dim).cpu().numpy()
+        want = emulate(x)
+        assert got.view(np.int32).tolist() == want.view(np.int32).tolist(), (x.shape, dim)
+
+
+def _gn_products(K, T, Xw, uv, w):
+    """_gn_refine's per-point products of one step before its sums over the
+    points: J^T (J w) and J^T (r w), in its own ops."""
+    fx, fy = K[0, 0], K[1, 1]
+    eye3 = torch.eye(3, dtype=Xw.dtype, device=Xw.device)
+    w = w[..., None, None]
+    Xc = se3.transform(T, Xw)
+    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+    u = fx * x * inv_z + K[0, 2]
+    v = fy * y * inv_z + K[1, 2]
+    r = torch.stack([u - uv[..., 0], v - uv[..., 1]], dim=-1)
+    zero = torch.zeros_like(x)
+    Jpi = torch.stack([torch.stack([fx * inv_z, zero, -fx * x * inv_z * inv_z], dim=-1),
+                       torch.stack([zero, fy * inv_z, -fy * y * inv_z * inv_z], dim=-1)], dim=-2)
+    Jx = torch.cat([eye3.expand(Xc.shape[:-1] + (3, 3)), -se3.hat(Xc)], dim=-1)
+    J = Jpi @ Jx
+    Jt = J.transpose(-1, -2)
+    return Jt @ (J * w), Jt @ (r[..., None] * w)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("n", WIDE_N)
+@pytest.mark.parametrize("S", [1, 8])
+def test_plain_per_point_ops_keep_their_orders_past_128(S, n):
+    """The plain path's per-point products (the reprojection's X R^T + t,
+    for H + P poses and for one; the Gauss-Newton step's J, J^T J w and
+    J^T r w) give a point the same bits at n slots as at 128, where the
+    kernel's orders were read: cuBLAS keeps its orders as the batch grows."""
+    dev = _card()
+    K, Xw, uv, valid, noise, T_init = batch(list(range(60 + S, 60 + 2 * S)), dev, N=n,
+                                            inlier_share=0.7)
+    if S == 1:
+        Xw, uv, valid, T_init = Xw[0], uv[0], valid[0], T_init[0]
+    T_h = torch.stack([T_init] * 129, dim=-3)
+    T_h = T_h + 1e-3 * torch.arange(129, device=dev, dtype=torch.float32)[:, None, None]
+    w = (torch.arange(n, device=dev) % 3 != 0).to(torch.float32).expand(valid.shape)
+    head = (..., slice(0, 128))
+    for full, part, at in (
+            (pnp._reproj_errors(K, T_h, Xw, uv),
+             pnp._reproj_errors(K, T_h, Xw[..., :128, :], uv[..., :128, :]), head),
+            (pnp._reproj_errors(K, T_init, Xw, uv),
+             pnp._reproj_errors(K, T_init, Xw[..., :128, :], uv[..., :128, :]), head),
+            (_gn_products(K, T_init, Xw, uv, w),
+             _gn_products(K, T_init, Xw[..., :128, :], uv[..., :128, :], w[..., :128]),
+             (..., slice(0, 128), slice(None), slice(None)))):
+        for a, b in zip(full, part):
+            assert torch.equal(_bits(a[at]), _bits(b)), (tuple(a.shape), tuple(b.shape))
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("share", [1.0, 0.7, 0.3])
+@pytest.mark.parametrize("prior", [True, False])
+@pytest.mark.parametrize("lead", [(), (8,)])
+@pytest.mark.parametrize("n", WIDE_N)
+def test_kernel_wide_bit_equal_to_plain_stage_by_stage(n, lead, prior, share):
+    """Past 128 slots (the dense configuration's 2048 among them): every
+    stage and the result bit for bit, one stream with no stream axis
+    (StereoVO's frame step) and 8 streams."""
+    dev = _card()
+    S = max(lead, default=1)
+    first = 3000 + n + int(100 * share)
+    args = batch(list(range(first, first + S)), dev, with_prior=prior, inlier_share=share, N=n)
+    if not lead:
+        args = (args[0],) + tuple(a[0] if a is not None else None for a in args[1:])
+    _check(args)
+
+
+@pytest.mark.chip
+def test_kernel_wide_captured_counts_launches_and_slots():
+    """Past 128 slots a call is still two launches, also inside a CUDA
+    graph, and counts its S x N slots; a replay with new inputs equals an
+    eager call."""
+    dev = _card()
+    params = RansacParams()
+    static = [a.clone() for a in batch(list(range(8)), dev, inlier_share=0.7, N=2048)]
+    pnp.ransac_pnp.launches = pnp.ransac_pnp.slots = 0
+    pnp.ransac_pnp(*static[:5], params, T_init=static[5])
+    assert (pnp.ransac_pnp.launches, pnp.ransac_pnp.slots) == (2, 8 * 2048)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        out = pnp.ransac_pnp(*static[:5], params, T_init=static[5])
+    torch.cuda.current_stream().wait_stream(side)
+    fresh = batch(list(range(8, 16)), dev, inlier_share=0.7, N=2048)
+    for dst, src in zip(static, fresh):
+        dst.copy_(src)
+    graph.replay()
+    want = pnp.ransac_pnp(*fresh[:5], params, T_init=fresh[5])
+    torch.cuda.synchronize()
+    assert not _unequal(out, want, RESULT)

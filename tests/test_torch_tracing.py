@@ -310,3 +310,79 @@ def test_marks_leave_a_replayed_graph_bit_equal(frames, kind):
     assert all(v is None for v in step._marks.values())
     step = runs[1][1]._step if kind == "frame" else runs[1][1]._chunk_step
     assert {len(v.stamps) for v in step._marks.values()} == {len(ORDER) * per}
+
+
+def test_counters_are_drained_with_the_tracer_on():
+    """drain() gives what each of the frame step's counters added since the
+    last reset or drain, with the tracer on and only where one moved; off,
+    no counters."""
+    from svo_tpu_torch.geometry import pnp
+
+    pnp.ransac_pnp.slots += 5
+    tracing.enable()
+    pnp.ransac_pnp.launches += 2
+    pnp.ransac_pnp.slots += 8 * 2048
+    assert tracing.drain()["counters"] == {"ransac_pnp.launches": 2,
+                                           "ransac_pnp.slots": 8 * 2048}
+    assert "counters" not in tracing.drain()
+    tracing.disable()
+    pnp.ransac_pnp.slots += 7
+    assert "counters" not in tracing.drain()
+
+
+def test_a_replay_adds_what_its_capture_counted(monkeypatch):
+    """A captured step's replay adds to every counter (the kernel wrappers'
+    launches and ransac_pnp.slots) what its capture recorded, so a traced
+    run reads the size the PnP kernel ran at from drain()'s counters."""
+    from svo_tpu_torch.geometry import pnp
+    from svo_tpu_torch.pipeline import graph as tgraph
+
+    class Fake:
+        def replay(self):
+            pass
+
+    def capture(self, name, body):
+        body()
+        self.graphs[name] = Fake()
+        self.capture_s[name] = 0.0
+        self.launches_per_replay[name] = {"ransac_pnp": 2, "split_gumbel": 1,
+                                          "ransac_pnp.slots": 2 * 1024}
+
+    monkeypatch.setattr(tgraph.StepGraph, "_capture", capture)
+    step = tgraph.StepGraph(lambda s, key: (s[0] + 1.0,), None, "cpu")
+    step.capture = True
+    tracing.enable()
+    for _ in range(3):  # a capture, then two replays
+        step((torch.zeros(3),))
+    assert tracing.drain()["counters"] == {"ransac_pnp.launches": 4, "split_gumbel.launches": 2,
+                                           "ransac_pnp.slots": 4 * 1024}
+
+
+@pytest.mark.chip
+def test_counters_record_the_pnp_kernels_size(frames):
+    """On the card, captured chunks of 2 streams at 256 feature slots (the
+    PnP kernel's wide path) with the tracer on: drain()'s counters give two
+    launches and 2 x 256 slots a frame step, and every frame step's marks
+    include pnp_kernel in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: "
+                    "python3 -m pytest tests/test_torch_tracing.py --noconftest -q)")
+    import dataclasses
+
+    from svo_tpu_torch.config import Capacity
+
+    seq, fr = frames
+    cfg, cam = _engine_args(seq)
+    cfg = dataclasses.replace(cfg, capacity=Capacity(max_features=256, max_detections=256))
+    tracing.enable()
+    vo = BatchedStereoVO(cfg, cam, 2, chunk=6, kf_cadence=3, device="cuda")
+    vo.start(np.stack([fr[0][0]] * 2), np.stack([fr[0][1]] * 2))
+    tracing.drain()
+    for c in range(2):
+        vo.process_chunk(*_u8_chunk(fr, 2, c))
+    torch.cuda.synchronize()
+    rec = tracing.drain()
+    assert rec["counters"]["ransac_pnp.launches"] == 2 * 12
+    assert rec["counters"]["ransac_pnp.slots"] == 12 * 2 * 256
+    assert all([st for st, _ in f] == ORDER for m in rec["marks"] for f in m[3])
+    assert "pnp_kernel" in ORDER
