@@ -14,7 +14,9 @@ forward-backward shapes, which must equal the chain of per-level launches
 bit for bit and be the faster of the two; the capability probes
 (svo_tpu_torch/probe.py); the threefry PnP noise; and RANSAC-PnP
 (ransac_pnp, two launches a call, bit-equal to its plain version at 1, 8
-and 16 streams). It runs small
+and 16 streams); and FAST with its 3x3 NMS and suppression mask (fast_nms,
+one launch a call, bit-equal to its plain version at 1, 8 and 64 streams
+of 376x1241 and at every level of ORB's 8-level pyramid). It runs small
 card-vs-CPU agreement checks with both KLT engines, single-stream and
 batched. Then the two main paths on bench.py's 97-frame 376x1241 synthetic
 sequence, chunk 12 and keyframe cadence 6, each once per engine
@@ -35,7 +37,7 @@ against refine_global (graph=False) in both regimes, 8 streams and one;
 one stream with the in-pipeline window BA (ba.enabled); and a
 checkpoint taken on the card after chunk 4 and resumed in a fresh engine,
 which must reproduce chunks 5-8 bit for bit. The shipping configuration
-(Config(): the ORB detector, plain PyTorch with no kernel of its own): the
+(Config(): the ORB detector, plain PyTorch but for the fast_nms kernel): the
 scale pyramid, the Harris response and detect_orb on the card against the
 CPU path (one stream and 8), then the port's own entry point,
 svo_tpu_torch.run_synthetic.main, on the 97-frame sequence with chunk 12
@@ -960,11 +962,13 @@ def phase_dense_chunk(frames, seq) -> dict:
     sequence 00, the fused engine) for 8 streams in captured cadenced chunks
     of 12 at full width: two chunks, each frame step two ransac_pnp
     launches of 8 x 2,048 slots (ransac_pnp.slots) and one threefry launch,
-    every pose finite; the second chunk's replay timed."""
+    each keyframe step one fast_nms launch an ORB level, every pose finite;
+    the second chunk's replay timed."""
     import dataclasses
 
     from svo_tpu_torch.config import Capacity, OrbParams
     from svo_tpu_torch.geometry.pnp import ransac_pnp
+    from svo_tpu_torch.ops.fast import fast_nms
     from svo_tpu_torch.ops.random import split_gumbel
     from svo_tpu_torch.parallel.batched import BatchedStereoVO
 
@@ -979,7 +983,7 @@ def phase_dense_chunk(frames, seq) -> dict:
     bvo = BatchedStereoVO(cfg, staged.cam, STREAMS, chunk=CHUNK, kf_cadence=CADENCE,
                           lk_engine="fused")
     bvo.start(staged.l0, staged.r0)
-    ransac_pnp.launches = ransac_pnp.slots = split_gumbel.launches = 0
+    ransac_pnp.launches = ransac_pnp.slots = split_gumbel.launches = fast_nms.launches = 0
     bvo.process_chunk(*staged.chunks[0])
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -988,18 +992,92 @@ def phase_dense_chunk(frames, seq) -> dict:
     b.record()
     torch.cuda.synchronize()
     steps = 2 * CHUNK
-    got = (ransac_pnp.launches, ransac_pnp.slots, split_gumbel.launches)
-    want = (2 * steps, steps * STREAMS * 2048, steps)
-    check(got == want, f"dense chunk path: ransac_pnp launches, slots and threefry launches {got}, "
+    got = (ransac_pnp.launches, ransac_pnp.slots, split_gumbel.launches, fast_nms.launches)
+    want = (2 * steps, steps * STREAMS * 2048, steps, 8 * (steps // CADENCE))
+    check(got == want, f"dense chunk path: ransac_pnp launches, slots, threefry launches and "
+                       f"fast_nms launches (one an ORB level a keyframe step) {got}, "
                        f"expected {want}")
     poses = bvo.trajectories(steps + 1)
     check(bool(np.isfinite(poses).all()), "dense chunk path: a non-finite pose")
     n_feat = int(bvo.state.features.valid.sum())
     chunk_ms = a.elapsed_time(b)
     print(f"dense chunk path: {STREAMS} streams x 2048 slots, ORB 2000, fused; {steps} steps, "
-          f"ransac_pnp {got[0]} launches ({got[1]} slots), threefry {got[2]}; a replayed chunk "
+          f"ransac_pnp {got[0]} launches ({got[1]} slots), threefry {got[2]}, fast_nms "
+          f"{got[3]}; a replayed chunk "
           f"of {CHUNK} {chunk_ms:.2f} ms; {n_feat} live features at the end")
-    return dict(launches=got[0], slots=got[1], chunk_ms=chunk_ms, live_features=n_feat)
+    return dict(launches=got[0], slots=got[1], fast_nms_launches=got[3], chunk_ms=chunk_ms,
+                live_features=n_feat)
+
+
+# the FAST kernel's main-path calls: a keyframe step's left images, 1, 8
+# (the fleet's) and 64 streams (fleet64's), and ORB's 8-level 1.2 pyramid
+FAST_STREAMS = (1, STREAMS, 64)
+
+
+def bound_fast_nms(S: int, H: int, W: int, masked: bool) -> tuple[float, str]:
+    """Least ms for one fast_nms launch: the image read once (and the mask,
+    one byte a pixel), the score written once, at 3.35 TB/s."""
+    return S * H * W * (4 + masked + 4) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_fast_nms(frames) -> dict:
+    """The FAST + NMS kernel (csrc/fast_nms.cu, ops/fast.py::fast_nms)
+    against the plain composition on the card, bit for bit (int32 views):
+    376x1241 uint8-valued frames at S = 1, 8 and 64 with the suppression
+    mask FAST's keyframe step builds, and every level of ORB's 8-level 1.2
+    pyramid of 8 streams without one, thresholds 7 and 20 (min_threshold
+    and FAST's); then per shape the device us a launch (profiler), the
+    wall ms per call (events), the plain composition's ms and the bound."""
+    from svo_tpu_torch.ops import nms
+    from svo_tpu_torch.ops.fast import fast_nms, fast_nms_ref
+    from svo_tpu_torch.ops.pyramid import scale_pyramid
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    fast_nms.launches = fast_nms.pixels = 0
+    lefts = np.stack([_u8(frames[i % len(frames)][1]) for i in range(max(FAST_STREAMS))])
+    rng = np.random.default_rng(23)
+    cases = []
+    for S in FAST_STREAMS:
+        img = torch.from_numpy(lefts[:S].astype(np.float32)).to(dev)
+        pos = torch.from_numpy(np.stack([rng.uniform(0, SHAPE[1], (S, 128)),
+                                         rng.uniform(0, SHAPE[0], (S, 128))], -1)
+                               .astype(np.float32)).to(dev)
+        mask = nms.suppression_mask(SHAPE, pos, torch.ones(S, 128, dtype=torch.bool,
+                                                           device=dev), 10)
+        cases.append((f"S={S} {SHAPE[0]}x{SHAPE[1]} masked", img, mask))
+    levels = scale_pyramid(torch.from_numpy(lefts[:STREAMS].astype(np.float32)).to(dev), 8, 1.2)
+    cases += [(f"ORB level {lv} S={STREAMS} {x.shape[-2]}x{x.shape[-1]}", x, None)
+              for lv, x in enumerate(levels)]
+    rows = {}
+    for tag, img, mask in cases:
+        for thr in (7.0, 20.0):
+            got, want = fast_nms(img, thr, mask), fast_nms_ref(img, thr, mask)
+            torch.cuda.synchronize()
+            n_diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            check(n_diff == 0, f"fast_nms {tag} thr {thr}: {n_diff} pixels differ from plain")
+        fn = lambda: fast_nms(img, 20.0, mask)  # noqa: E731
+        ms = median_ms(fn)
+        plain_ms = median_ms(lambda: fast_nms_ref(img, 20.0, mask), reps=5, inner=2)
+        n_before = fast_nms.launches
+        evs = [e for e in device_events(lambda: [fn() for _ in range(20)]) if "fast_nms" in e.key]
+        n_dev = sum(e.count for e in evs)
+        device_us = sum(e.self_device_time_total for e in evs) / max(n_dev, 1)
+        check(fast_nms.launches - n_before == 20 and n_dev > 0,
+              f"fast_nms {tag}: {fast_nms.launches - n_before} launches, {n_dev} traced")
+        S, H, W = img.shape
+        bound, by = bound_fast_nms(S, H, W, mask is not None)
+        share = 100.0 * bound / (device_us / 1e3)
+        rows[tag] = dict(ms=ms, plain_ms=plain_ms, device_us=device_us, bound_ms=bound,
+                         bound_by=by, roofline_pct=share, pixels=S * H * W)
+        print(f"fast_nms {tag}: bit-equal to plain at thresholds 7 and 20 | kernel {ms:.4f} ms "
+              f"(events) | device {device_us:.2f} us a launch | plain {plain_ms:.3f} ms | bound "
+              f"{bound:.6f} ms ({by}), {share:.2f}% of it")
+    orb = [r for t, r in rows.items() if t.startswith("ORB")]
+    print(f"fast_nms: {time.perf_counter() - t0:.1f} s | launches {fast_nms.launches} | an ORB "
+          f"keyframe's 8 levels: device {sum(r['device_us'] for r in orb):.2f} us, plain "
+          f"{sum(r['plain_ms'] for r in orb):.3f} ms")
+    return dict(rows=rows, launches=fast_nms.launches, max_abs_err=0.0)
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1214,7 +1292,8 @@ def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     launches = sum(e.count for e in dev)
     check(launches > 0, "the profiler saw no device activity")
     own = {}
-    for name in ("klt_patches_kernel", "lk_level_kernel", "threefry_split_gumbel_kernel"):
+    for name in ("klt_patches_kernel", "lk_level_kernel", "threefry_split_gumbel_kernel",
+                 "fast_nms_kernel"):
         evs = [e for e in dev if name in e.key]
         count = sum(e.count for e in evs)
         if count:
@@ -1247,7 +1326,8 @@ def _expected_launches(engine: str, n_kf: int, steps: int = N_FRAMES - 1) -> int
 WRAPPERS = {"klt_patches": ("extract_klt_patches",),
             "lk_level": ("lk_track_level", "lk_track_pyramid"),
             "threefry": ("split_gumbel",),
-            "ransac_pnp": ("ransac_pnp",)}
+            "ransac_pnp": ("ransac_pnp",),
+            "fast_nms": ("fast_nms",)}
 PATH_KERNEL = {"patches": "klt_patches", "fused": "lk_level"}
 
 
@@ -1264,23 +1344,34 @@ def _zero(kernels) -> None:
         k.launches = 0
 
 
-def _want(name: str, engine: str, n_kf: int, steps: int) -> int:
+def _levels(use_orb: bool) -> int:
+    """The detector's fast_nms launches a keyframe step: one for FAST (the
+    left image), one a pyramid level of Config()'s ORB."""
+    from svo_tpu_torch.config import Config
+
+    return Config().orb_params.pyr_levels if use_orb else 1
+
+
+def _want(name: str, engine: str, n_kf: int, steps: int, levels: int) -> int:
     """The launch rule of one kernel in a run of `steps` frame steps with
     n_kf keyframe steps (bootstraps included): the engine's KLT kernel by
     _expected_launches, the other KLT kernel never, the threefry kernel once
     a frame step (a launch draws every stream's noise; a bootstrap draws
     none), the PnP kernel twice a frame step (hypotheses, then the choice;
-    a bootstrap solves none)."""
+    a bootstrap solves none), the FAST kernel `levels` times a keyframe step
+    (_levels: a launch detects on every stream's image of one level)."""
     if name == "threefry":
         return steps
     if name == "ransac_pnp":
         return 2 * steps
+    if name == "fast_nms":
+        return levels * n_kf
     return _expected_launches(engine, n_kf, steps) if name == PATH_KERNEL[engine] else 0
 
 
-def _check_launches(tag, engine, counts, n_kf, steps: int = N_FRAMES - 1):
+def _check_launches(tag, engine, counts, n_kf, steps: int = N_FRAMES - 1, *, levels: int):
     for name, count in _kernel_counts(counts).items():
-        want = _want(name, engine, n_kf, steps)
+        want = _want(name, engine, n_kf, steps, levels)
         check(count == want, f"{tag} {engine}: {name} launched {count} times, expected {want}")
 
 
@@ -1317,7 +1408,7 @@ def phase_main_path(kernels, frames, seq) -> tuple[dict, dict]:
         check(np.isfinite(ate) and ate <= ATE_LIMIT_M, f"{engine}: ATE {ate} m > {ATE_LIMIT_M} m")
         check(inl >= 0.8, f"{engine}: mean inlier ratio {inl} < 0.8")
         check(live >= 60, f"{engine}: mean live features {live} < 60")
-        _check_launches("single stream", engine, counts, n_kf)
+        _check_launches("single stream", engine, counts, n_kf, levels=1)
 
     first = tuple(torch.from_numpy(frames[0][k]).cuda() for k in (1, 2))
     chunks = [
@@ -1431,7 +1522,7 @@ def phase_batched_main_path(kernels, seq, staged) -> dict:
             check(live[s] >= 60, f"batched {engine}: stream {s} mean live features {live[s]} < 60")
         check(len(set(n_kf)) == 1, f"batched {engine}: keyframe counts differ: {n_kf}")
         # the same count as ONE stream's run: a launch serves all streams
-        _check_launches(f"batched S={S}", engine, counts, n_kf[0])
+        _check_launches(f"batched S={S}", engine, counts, n_kf[0], levels=_levels(cfg.use_orb))
 
     prof_chunks = [stage(range(1 + c * 6, 7 + c * 6)) for c in range(2)]
     for engine in ENGINES:
@@ -1694,7 +1785,8 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
         check(all(bool(torch.isfinite(x).all()) for x in _leaves(bvo.state)
                   if x.is_floating_point()), f"refined arm turn {turn}: non-finite state")
         n_kf = bvo.state.kf_flags[:, : n_stepped + 1].sum(dim=1).tolist()
-        _check_launches(f"refined arm turn {turn}", "fused", counts, n_kf[0])
+        _check_launches(f"refined arm turn {turn}", "fused", counts, n_kf[0],
+                        levels=_levels(staged.cfg.use_orb))
         ates[refine] = _stream_ates(trajs, staged)
         fps[refine].append(S * n_stepped / wall)
         line = (f"refined arm turn {turn}, refine {'every 2 chunks + flush' if refine else 'off'}: "
@@ -2120,7 +2212,7 @@ def phase_shipping_main_path(kernels, frames, seq) -> dict:
             check(r["mean_inlier_ratio"] >= 0.8, f"shipping ({tag}): mean inlier ratio < 0.8")
             check(r["mean_features"] >= 60, f"shipping ({tag}): mean live features < 60")
             for name, count in _kernel_counts(counts).items():
-                want = _want(name, engine, r["keyframes"], N_FRAMES - 1)
+                want = _want(name, engine, r["keyframes"], N_FRAMES - 1, _levels(True))
                 check(count == want, f"shipping ({tag}): {name} launched {count} times, "
                                      f"expected {want}")
     prof = {orb: _step_profile(frames, seq, orb) for orb in (True, False)}
@@ -2183,7 +2275,7 @@ def phase_shipping_batched(kernels, staged) -> dict:
         check(inl[s] >= 0.8, f"batched ORB: stream {s} mean inlier ratio {inl[s]} < 0.8")
         check(live[s] >= 60, f"batched ORB: stream {s} mean live features {live[s]} < 60")
     check(len(set(n_kf)) == 1, f"batched ORB: keyframe counts differ: {n_kf}")
-    _check_launches(f"batched ORB S={S}", "fused", counts, n_kf[0])
+    _check_launches(f"batched ORB S={S}", "fused", counts, n_kf[0], levels=_levels(cfg.use_orb))
     return dict(counts=counts, ates=ates, fps=fps, peak_mib=peak / 2**20)
 
 
@@ -2287,7 +2379,8 @@ def phase_soak(kernels) -> dict:
     check(res["max_pose_diff"] == 0.0, f"soak: the resumed run differs ({res})")
     check(r["finite"] and np.isfinite(r["ate_m"]) and r["ate_m"] < ATE_LIMIT_M,
           f"soak: ATE {r['ate_m']} m")
-    _check_launches("soak", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    _check_launches("soak", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"],
+                    levels=1)
     return dict(counts=counts, result=r)
 
 
@@ -2330,7 +2423,8 @@ def phase_worlds(kernels) -> dict:
     base = r["worlds"][0]
     check(base["world"] == "corridor-base" and max(base["ate_fwd_m"], base["ate_rev_m"]) < ATE_LIMIT_M,
           f"worlds: corridor-base ATE {base['ate_fwd_m']} / {base['ate_rev_m']} m")
-    _check_launches("worlds", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    _check_launches("worlds", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"],
+                    levels=1)
     return dict(counts=counts, result=r)
 
 
@@ -2394,7 +2488,8 @@ def phase_recovery(kernels) -> dict:
           f"without a back-end, {ref['post_abs_err_no_backend_m']} m")
     keys = r["arm_rng_keys"]
     check(len(keys) == 2 and keys[0] == keys[1], f"recovery: the arms' keys differ {keys}")
-    _check_launches("recovery", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    _check_launches("recovery", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"],
+                    levels=1)
     return dict(counts=counts, result=r)
 
 
@@ -2420,7 +2515,8 @@ def phase_eval_ba(kernels, frames, seq) -> dict:
     check(r["finite"], "eval_ba: a swept pose is not finite")
     check(r["sweeps"] == len(his) == 5 and r["his"] == his,
           f"eval_ba: {r['sweeps']} sweeps at {r['his']}, expected {his}")
-    _check_launches("eval_ba", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"])
+    _check_launches("eval_ba", "fused", counts, r["steps"]["keyframes"], r["steps"]["frames"],
+                    levels=1)
     return dict(counts=counts, result=r)
 
 
@@ -2465,7 +2561,7 @@ def phase_eval_tables(kernels) -> dict:
                       f"fleet {tag} {row['seq']}: ATE {row['ate_m']}")
             _check_launches(f"fleet {tag}", engine, per_run[tag],
                             sum(row["keyframes"] for row in r["rows"]),
-                            sum(row["frames"] - 1 for row in r["rows"]))
+                            sum(row["frames"] - 1 for row in r["rows"]), levels=1)
     _zero(kernels)
     e, _ = eval_euroc.evaluate(eval_euroc.parse_args(["--lk-engine", "patches", "--device", "cuda"]))
     per_run["euroc_mini"] = _counts(kernels)
@@ -2482,7 +2578,8 @@ def phase_eval_tables(kernels) -> dict:
           f"{wall:.1f} s | launches {per_run}")
     check(e["finite"] and np.isfinite(e["ate_m"]) and e["ate_m"] <= bound,
           f"eval_euroc: ATE {e['ate_m']} m > {bound} m")
-    _check_launches("euroc_mini", "patches", per_run["euroc_mini"], e["keyframes"], e["frames"] - 1)
+    _check_launches("euroc_mini", "patches", per_run["euroc_mini"], e["keyframes"], e["frames"] - 1,
+                    levels=1)
     counts = {k: sum(c[k] for c in per_run.values()) for k in per_run["euroc_mini"]}
     kc = _kernel_counts(counts)
     check(kc["klt_patches"] > 0 and kc["lk_level"] > 0, f"eval tables: launches {kc}")
@@ -2525,7 +2622,7 @@ def phase_tools(kernels, frames, seq) -> dict:
         n_kf = starts + n_steps // CADENCE  # each start is a bootstrap (stereo) step
         got = {k: n - before[k] for k, n in _kernel_counts(_counts(kernels)).items()}
         for name, count in got.items():
-            want = _want(name, engine, n_kf, n_steps)
+            want = _want(name, engine, n_kf, n_steps, 1)
             check(count == want, f"{tag} {engine}: {name} launched {count} times, expected {want}")
 
     def check_ates(tag, ates):
@@ -2550,10 +2647,13 @@ def phase_tools(kernels, frames, seq) -> dict:
         check_ates(f"time_chunk {engine}", v["ate_per_stream_m"])
         check(v["reps_bit_equal"], f"time_chunk {engine}: the two reps differ")
     got = {k: n - before[k] for k, n in _kernel_counts(_counts(kernels)).items()}
-    for engine in ENGINES:  # each engine: a warm chunk and 2 timed runs, 3 starts
-        want = _expected_launches(engine, 3 + (CHUNK + 2 * steps) // CADENCE, CHUNK + 2 * steps)
+    n_kf = 3 + (CHUNK + 2 * steps) // CADENCE  # each engine: a warm chunk and 2 timed runs, 3 starts
+    for engine in ENGINES:
+        want = _expected_launches(engine, n_kf, CHUNK + 2 * steps)
         check(got[PATH_KERNEL[engine]] == want,
               f"time_chunk: {PATH_KERNEL[engine]} launched {got[PATH_KERNEL[engine]]}, expected {want}")
+    check(got["fast_nms"] == 2 * n_kf,  # both engines' keyframe steps, FAST
+          f"time_chunk: fast_nms launched {got['fast_nms']}, expected {2 * n_kf}")
     for name, per_step in (("threefry", 1), ("ransac_pnp", 2)):  # both engines' steps
         want = 2 * per_step * (CHUNK + 2 * steps)
         check(got[name] == want, f"time_chunk: {name} launched {got[name]}, expected {want}")
@@ -2564,7 +2664,8 @@ def phase_tools(kernels, frames, seq) -> dict:
     want = 2 * CHUNK + CHUNK // CADENCE
     seen = sum(x["count"] for x in p["by_kind"] if x["name"] == "lk_level_kernel")
     check(p["launches"] == {"klt_patches": 0, "lk_level": want, "threefry": CHUNK,
-                            "ransac_pnp": 2 * CHUNK} and seen == want,
+                            "ransac_pnp": 2 * CHUNK, "fast_nms": CHUNK // CADENCE}
+          and seen == want,
           f"profile_chunk: launches {p['launches']}, lk_level_kernel in the trace {seen}, "
           f"expected {want}")
     check(p["device_ms"] > 0 and 0 < p["busy_share"] <= 1,
@@ -2806,11 +2907,12 @@ def phase_scaling() -> dict:
             want = _expected_launches("patches", sum(w["keyframes"]),
                                       len(w["keyframes"]) * (w["frames"] - 1))
             steps = len(w["keyframes"]) * (w["frames"] - 1)  # one draw a stream's step
+            n_kf = sum(w["keyframes"])  # a stream's launch a keyframe step, FAST
             check(w["launches"] == {"klt_patches": want, "lk_level": 0, "threefry": steps,
-                                    "ransac_pnp": 2 * steps},
+                                    "ransac_pnp": 2 * steps, "fast_nms": n_kf},
                   f"scaling frontend, {n}-process arm, rank {w['rank']}: launches "
-                  f"{w['launches']}, expected {want} klt_patches, {steps} threefry and "
-                  f"{2 * steps} ransac_pnp")
+                  f"{w['launches']}, expected {want} klt_patches, {steps} threefry, "
+                  f"{2 * steps} ransac_pnp and {n_kf} fast_nms")
     cfg, cam, lefts, rights = fsw.fleet(SCALING_FRONTEND_FRAMES)
     for s in range(fsw.STREAMS):
         lone = StereoVO(cfg, cam, seed=s, device="cuda").run(
@@ -2902,7 +3004,8 @@ def phase_graph(kernels, frames, seq) -> dict:
         check(same, f"graph {tag}: the captured run differs from the eager loop by {dt} m")
         check(cap["counts"] == eager["counts"],
               f"graph {tag}: launches {cap['counts']}, eager {eager['counts']}")
-        _check_launches(f"graph {tag}", engine, cap["counts"], cap["n_kf"])
+        _check_launches(f"graph {tag}", engine, cap["counts"], cap["n_kf"],
+                        levels=_levels(use_orb))
         out[tag] = cap["counts"]
         del run, eager, cap, step
     return out
@@ -3078,7 +3181,8 @@ def phase_frame_graph(kernels, frames, seq) -> dict:
               f"frame graph {tag}: {len(cap['keys'])} key reads in {N_FRAMES - 1} frame steps")
         check(cap["counts"] == eager["counts"],
               f"frame graph {tag}: launches {cap['counts']}, eager {eager['counts']}")
-        _check_launches(f"frame graph {tag}", engine, cap["counts"], n_kf)
+        _check_launches(f"frame graph {tag}", engine, cap["counts"], n_kf,
+                        levels=_levels(cfg.use_orb))
         check(all(np.isfinite(a) and a <= limit for a in cap["ates"]),
               f"frame graph {tag}: ATE {cap['ates']} m > {limit} m")
         if eager_ate is not None:
@@ -3417,9 +3521,11 @@ def _kernels() -> list:
     from svo_tpu_torch.ops.klt_patches import extract_klt_patches
     from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
     from svo_tpu_torch.geometry.pnp import ransac_pnp
+    from svo_tpu_torch.ops.fast import fast_nms
     from svo_tpu_torch.ops.random import split_gumbel
 
-    return [extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp]
+    return [extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp,
+            fast_nms]
 
 
 def _marker(t_start: float, walls: dict):
@@ -3531,6 +3637,8 @@ def main() -> int:
     done("threefry kernel and batched streams against single streams")
     pnp = phase_pnp(frames, seq)
     done("RANSAC-PnP kernel against its plain version")
+    fst = phase_fast_nms(frames)
+    done("FAST + NMS kernel against its plain version")
     phase_graph_timing(frames, seq)
     done("captured chunk against the eager loop, timed")
     phase_frame_graph_timing(frames, seq)
@@ -3622,6 +3730,24 @@ def main() -> int:
         "batched_ms": p8["ms"], "batched_plain_ms": p8["plain_ms"],
         "batched_bound_ms": p8["bound_ms"], "batched_device_us": p8["device_us"],
     }
+    # the FAST kernel: one launch a FAST keyframe step, one an ORB level a
+    # keyframe step, on every path; its times at one stream, the 8-stream
+    # call beside them
+    fp = path_launches("fast_nms")
+    f1, f8 = (fst["rows"][f"S={S} {SHAPE[0]}x{SHAPE[1]} masked"] for S in (1, STREAMS))
+    f64 = fst["rows"][f"S=64 {SHAPE[0]}x{SHAPE[1]} masked"]
+    fast_row = {
+        "name": "fast_nms", "route": "cuda", "source": "svo_tpu_torch/csrc/fast_nms.cu",
+        "replaces": "svo_tpu/ops/fast.py::fast_score + svo_tpu/ops/nms.py::nms3x3 (plain jnp); "
+                    "not a Pallas kernel",
+        "launches": sum(fp.values()), **fp, "max_abs_err": fst["max_abs_err"],
+        "ms": f1["ms"], "plain_ms": f1["plain_ms"], "bound_ms": f1["bound_ms"],
+        "bound_by": f1["bound_by"], "library_ms": None, "device_us": f1["device_us"],
+        "batched_ms": f8["ms"], "batched_plain_ms": f8["plain_ms"],
+        "batched_bound_ms": f8["bound_ms"], "batched_device_us": f8["device_us"],
+        "fleet64_device_us": f64["device_us"], "fleet64_plain_ms": f64["plain_ms"],
+        "fleet64_bound_ms": f64["bound_ms"],
+    }
     total = time.time() - t_start
     print("phase walls (s): " + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     print(f"chip_smoke: all phases passed in {total:.0f} s")
@@ -3631,6 +3757,7 @@ def main() -> int:
         lk_row,
         tf_row,
         pnp_row,
+        fast_row,
         {
             "name": "probe", "route": "cuda", "source": "svo_tpu_torch/csrc/probe.cu",
             "replaces": "scripts/probe_mosaic.py:26", "launches": probes["launches"],

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 The kernels in csrc/*.cu (KLT patch extraction, the fused LK tracker, the
-threefry PnP noise, RANSAC-PnP, the capability probes) are compiled with
+threefry PnP noise, RANSAC-PnP, FAST with its NMS, the capability probes) are compiled with
 nvcc for Hopper (sm_90a), one nvcc process per source and all started
 together, and linked into one shared library with a plain C interface,
 loaded with ctypes. The library goes to build/svo_tpu_torch/ at the
@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
             p, p, p, p, p,
         ]
         lib.svo_ransac_pnp.restype = i
+        lib.svo_fast_nms.argtypes = [p, p, p, i, i, i, f, p]
+        lib.svo_fast_nms.restype = i
         lib.svo_probe.argtypes = [i, p, p, p, i, p]
         lib.svo_probe.restype = i
         lib.svo_cuda_error_string.argtypes = [i]

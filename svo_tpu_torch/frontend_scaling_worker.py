@@ -88,6 +88,7 @@ def main(argv=None) -> int:
     import torch.distributed as dist
 
     from svo_tpu_torch.geometry.pnp import ransac_pnp
+    from svo_tpu_torch.ops.fast import fast_nms
     from svo_tpu_torch.ops.klt_patches import extract_klt_patches
     from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
     from svo_tpu_torch.ops.random import split_gumbel
@@ -148,6 +149,7 @@ def main(argv=None) -> int:
                 "lk_level": lk_track_level.launches + lk_track_pyramid.launches,
                 "threefry": split_gumbel.launches,
                 "ransac_pnp": ransac_pnp.launches,
+                "fast_nms": fast_nms.launches,
             },
         }
         if args.arrays:

@@ -30,9 +30,7 @@ def detect_fast(
     tier (margin above `threshold`) and a weak tier that only claims
     leftover slots (select.bucketed_topk strong_gap)."""
     low = min(float(cfg.fast_params.min_threshold), threshold)
-    score = nms.nms3x3(fast.fast_score(img, low))
-    if suppress is not None:
-        score = torch.where(suppress, 0.0, score)
+    score = fast.fast_nms(img, low, suppress)
     if cfg.bucket.enabled:
         return select.bucketed_topk(
             score,
@@ -63,7 +61,7 @@ def orb_candidates(img: torch.Tensor, cfg: Config) -> list[tuple[torch.Tensor, t
     levels = scale_pyramid(img, op.pyr_levels, op.scale_factor)
     out = []
     for lvl, (lv_img, quota) in enumerate(zip(levels, orb_quotas(cfg))):
-        s = nms.nms3x3(fast.fast_score(lv_img, float(op.fast_treshold)))
+        s = fast.fast_nms(lv_img, float(op.fast_treshold))
         ranked = torch.where(s > 0, harris.harris_response(lv_img), -torch.inf)
         pos, scores, valid = select.global_topk_signed(ranked, quota)
         out.append((pos * (float(op.scale_factor) ** lvl), torch.where(valid, scores, -torch.inf)))

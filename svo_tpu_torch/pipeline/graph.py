@@ -96,6 +96,7 @@ import time
 import torch
 
 from svo_tpu_torch.geometry.pnp import ransac_pnp
+from svo_tpu_torch.ops.fast import fast_nms
 from svo_tpu_torch.ops.klt_patches import extract_klt_patches
 from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
 from svo_tpu_torch.ops.random import split_gumbel
@@ -103,11 +104,14 @@ from svo_tpu_torch.pipeline.state import leaves, unflatten
 from svo_tpu_torch.utils import tracing
 
 # the kernel wrappers that count their launches (`.launches`)
-COUNTED = (extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp)
+COUNTED = (extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp,
+           fast_nms)
 # every counter a replay adds to, by its name in launches_per_replay: each
-# wrapper's launches (under the wrapper's name), and the PnP kernel's slots
+# wrapper's launches (under the wrapper's name), the PnP kernel's slots and
+# the FAST kernel's pixels
 COUNTERS = {f.__name__: (f, "launches") for f in COUNTED}
 COUNTERS["ransac_pnp.slots"] = (ransac_pnp, "slots")
+COUNTERS["fast_nms.pixels"] = (fast_nms, "pixels")
 
 # the first stage's graph, beside the keys of the second
 PRE = "pre"

@@ -118,12 +118,14 @@ def kernel_launches() -> dict:
     """The port's kernels' launch counters (each wrapper's `launches`)."""
     from svo_tpu_torch.geometry.pnp import ransac_pnp
     from svo_tpu_torch.ops import lk_fused
+    from svo_tpu_torch.ops.fast import fast_nms
     from svo_tpu_torch.ops.klt_patches import extract_klt_patches
     from svo_tpu_torch.ops.random import split_gumbel
 
     return {"klt_patches": extract_klt_patches.launches,
             "lk_level": lk_fused.lk_track_level.launches + lk_fused.lk_track_pyramid.launches,
-            "threefry": split_gumbel.launches, "ransac_pnp": ransac_pnp.launches}
+            "threefry": split_gumbel.launches, "ransac_pnp": ransac_pnp.launches,
+            "fast_nms": fast_nms.launches}
 
 
 def profile(args: argparse.Namespace, seq=None, frames=None) -> dict:

@@ -62,9 +62,10 @@ drain() returns and clears the records (JSON-ready; times in host ns):
                    ...], one list a frame step (a cadenced chunk has one a frame)
     marks_skipped: replays whose marks had not completed when the graph replayed again
     counters:      with the tracer on and only where one moved: {"<wrapper>.launches":
-                   n, "ransac_pnp.slots": n}, what each of the frame step's counters
-                   (pipeline/graph.COUNTERS: each kernel wrapper's launches, the
-                   correspondence slots handed to the PnP kernel) added since the
+                   n, "ransac_pnp.slots": n, "fast_nms.pixels": n}, what each of the frame
+                   step's counters (pipeline/graph.COUNTERS: each kernel wrapper's
+                   launches, the correspondence slots handed to the PnP kernel, the
+                   pixels the FAST kernel scored) added since the
                    tracer's last reset or drain, replays included; slots over half the
                    launches is S x N, the size the PnP kernel ran at
 

@@ -78,11 +78,24 @@ def test_pyramid_and_scharr(name):
             np.testing.assert_allclose(_t(gb), _j(ga), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", list(IMAGES))
+@pytest.mark.parametrize("name", list(IMAGES) + [f"{n}-fast_nms" for n in IMAGES])
 def test_fast_and_nms_identical(name):
+    """fast_score and nms3x3 as svo_tpu's; the "-fast_nms" cases: fast_nms,
+    what the detectors call (on CPU tensors the plain composition), equal to
+    svo_tpu's nms3x3(fast_score(...)), and with a suppression mask to it
+    zeroed where masked."""
+    name, _, path = name.partition("-")
     img = IMAGES[name]()
     for thr in (5.0, 20.0):
         sj = jfast.fast_score(jnp.asarray(img), thr)
+        if path:
+            want = _j(jnms.nms3x3(sj))
+            np.testing.assert_array_equal(_t(tfast.fast_nms(torch.from_numpy(img), thr)), want)
+            mask = np.random.default_rng(int(thr)).random(img.shape) < 0.3
+            got = tfast.fast_nms(torch.from_numpy(img), thr, torch.from_numpy(mask))
+            np.testing.assert_array_equal(_t(got), np.where(mask, np.float32(0), want))
+            assert (want > 0).sum() > (want[mask] > 0).sum() > 0
+            continue
         st = tfast.fast_score(torch.from_numpy(img), thr)
         np.testing.assert_array_equal(_t(st), _j(sj))
         np.testing.assert_array_equal(_t(tnms.nms3x3(st)), _j(jnms.nms3x3(sj)))
