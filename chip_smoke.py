@@ -80,14 +80,8 @@ refiner's regime) inside as lax.cond; the port captures each step as CUDA
 graphs, one per branch key read once a call, and replays them
 (pipeline/graph.py), the default on the card, so every engine above runs
 captured: the cadenced chunks, the frame steps of the dynamic rule, the
-window BA, the refine sweeps. phase_graph_timing and
-phase_frame_graph_timing read, alone on the card, the captures' seconds,
-a warm chunk's or 12-frame stretch's wall eager against replayed in turns,
-a replayed step's device time, and the peak memory with the graphs'
-pool; phase_refine_graph_timing the refined arm's peak memory and the
-refiner's capture seconds, then a healthy and an aggressive 8-stream
-sweep and bench.py's LM solve, eager against replayed in turns, with
-device activities, device time and the busy share; phase_graph holds the captured cadenced runs against the eager loop
+window BA, the refine sweeps (their times are the benchmark's, vobench/).
+phase_graph holds the captured cadenced runs against the eager loop
 (graph=False) at bench.py's configuration, one stream and 8 with each
 engine and Config() (ORB) for one stream, and phase_frame_graph the
 captured frame steps (one stream frame by frame with each engine, the
@@ -96,8 +90,8 @@ chunks and frame by frame): every leaf of the final state bit-equal, the
 same launches, by the launch rule, one key read a frame step, the BA's
 solves where its rule says.
 
-The kernel checks and times, the batched-against-single check and the
-three graph timings run first, alone on the card. The phases after them run in
+The kernel checks and times and the batched-against-single check run
+first, alone on the card. The phases after them run in
 six worker processes of this script (`--worker <group>`,
 WORKER_GROUPS), started together on the one card and each running its
 phases in order; a
@@ -122,6 +116,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from svo_tpu_torch import _build
 from svo_tpu_torch._measure import device_events, median_ms, per_second, smi_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -396,9 +391,10 @@ def phase_batched_kernels(frames) -> dict:
             corners = klt._corners(pos_t, guess_t, H, W, py, px, w, mx)
             corners[1][:, 4], corners[3][:, 5] = W + 100, -100  # the kernel clamps
             args = (prev, gx, gy, curr, *corners, valid, py, px)
-            before = extract_klt_patches.launches
+            before = _build.launches()["klt_patches"]
             got = extract_klt_patches(*args)
-            check(extract_klt_patches.launches == before + 1, "a batched extraction is one launch")
+            check(_build.launches()["klt_patches"] == before + 1,
+                  "a batched extraction is one launch")
             want = extract_klt_patches_ref(*args)
             torch.cuda.synchronize()
             err = max(float((g - v).abs().max()) for g, v in zip(got, want))
@@ -432,9 +428,9 @@ def phase_batched_kernels(frames) -> dict:
         kw = dict(window=w, py=py, max_iters=params.max_iters, eps=params.eps,
                   min_eig_threshold=params.min_eig_threshold, margin_x=mx,
                   margin_y=klt._MY)
-        before = lk_track_level.launches
+        before = _build.launches()["lk_level"]
         got = lk_track_level(*largs, **kw)
-        check(lk_track_level.launches == before + 1, "a batched level is one launch")
+        check(_build.launches()["lk_level"] == before + 1, "a batched level is one launch")
         again = lk_track_level(*largs, **kw)
         want = lk_track_level_ref(*largs, **kw)
         torch.cuda.synchronize()
@@ -577,10 +573,10 @@ def phase_lk_track(frames) -> dict:
             def whole():
                 return lk_track_pyramid(*args, **kw)
 
-            before = lk_track_pyramid.launches, lk_track_level.launches
+            before = _build.launches()["lk_level"]
             got = whole()
-            check((lk_track_pyramid.launches, lk_track_level.launches)
-                  == (before[0] + 1, before[1]), "a whole tracker call is one launch")
+            check(_build.launches()["lk_level"] == before + 1,
+                  f"a whole tracker call of {n_levels} levels is one launch")
             again = whole()
             by_level = chain(counted)
             want = lk_track_pyramid_ref(*args, **kw)
@@ -677,9 +673,9 @@ def phase_probe() -> dict:
     PyTorch call."""
     from svo_tpu_torch import probe
 
-    probe.run_probe.launches = 0
+    _build.set_counters({"probe.launches": 0})
     rows = probe.run_all("cuda")
-    launches = probe.run_probe.launches
+    launches = _build.launches()["probe"]
     check(launches > 0, "no probe kernel was launched")
     x, o = probe.make_inputs(0, "cuda")
     first = probe.PROBES[0]
@@ -778,7 +774,7 @@ def phase_rng() -> dict:
           f"split of key (0, 0)) | svo_tpu's keys and words for seeds "
           f"{list(RNG_REFERENCE)} bit-equal, Gumbel within {ref_err:.3g}")
 
-    split_gumbel.launches = 0
+    _build.set_counters({"threefry.launches": 0})
     rows = {}
     for S in (1, 8, 16):
         keys = prng_key(np.arange(S) + 5, dev)
@@ -797,15 +793,16 @@ def phase_rng() -> dict:
                       f"threefry: stream {s} of the S=8 launch differs from its single launch")
         ms = median_ms(lambda: split_gumbel(keys, RNG_SHAPE))
         plain_ms = median_ms(lambda: split_gumbel_ref(keys, RNG_SHAPE), reps=10, inner=3)
-        n_before = split_gumbel.launches
+        n_before = _build.launches()["threefry"]
         evs = [e for e in device_events(lambda: [split_gumbel(keys, RNG_SHAPE) for _ in range(20)])
                if "threefry" in e.key]
         n_dev = sum(e.count for e in evs)
         device_us = sum(e.self_device_time_total for e in evs) / max(n_dev, 1)
         # the profiler drops records (ROADMAP C): the wrapper counts the
         # launches, the device time is averaged over what was recorded
-        check(split_gumbel.launches - n_before == 20 and n_dev > 0,
-              f"threefry S={S}: {split_gumbel.launches - n_before} launches, {n_dev} traced")
+        n_launched = _build.launches()["threefry"] - n_before
+        check(n_launched == 20 and n_dev > 0,
+              f"threefry S={S}: {n_launched} launches, {n_dev} traced")
         torch.cuda.synchronize()
         w0 = time.perf_counter()
         for _ in range(100):
@@ -819,8 +816,9 @@ def phase_rng() -> dict:
               f"plain, Gumbel max |diff| {err:.3g}{' | S=8 streams equal single launches' if S == 8 else ''} "
               f"| kernel {ms:.4f} ms (events) | device {device_us:.2f} us per launch | wall "
               f"{wall_ms:.4f} ms per call | plain {plain_ms:.4f} ms | bound {bound:.6f} ms ({by})")
-    print(f"rng: {time.perf_counter() - t0:.1f} s | launches {split_gumbel.launches}")
-    return dict(rows=rows, launches=split_gumbel.launches,
+    launches = _build.launches()["threefry"]
+    print(f"rng: {time.perf_counter() - t0:.1f} s | launches {launches}")
+    return dict(rows=rows, launches=launches,
                 max_abs_err=max(ref_err, max(r["max_abs_err"] for r in rows.values())))
 
 
@@ -907,7 +905,7 @@ def phase_pnp(frames, seq) -> dict:
 
     t0 = time.perf_counter()
     params = RansacParams()
-    ransac_pnp.launches = 0
+    _build.set_counters({"ransac_pnp.launches": 0})
     rows, err = {}, 0.0
     for S, N in [(S, 128) for S in PNP_STREAMS] + [PNP_DENSE]:
         for share in (1.0, 0.7, 0.3):
@@ -933,12 +931,13 @@ def phase_pnp(frames, seq) -> dict:
         ms = median_ms(fn)
         plain_ms = median_ms(lambda: ransac_pnp_ref(*args[:5], params, T_init=args[5]),
                              reps=5, inner=1)
-        n_before = ransac_pnp.launches
+        n_before = _build.launches()["ransac_pnp"]
         evs = [e for e in device_events(lambda: [fn() for _ in range(20)]) if "pnp_" in e.key]
         n_dev = sum(e.count for e in evs)
         device_us = sum(e.self_device_time_total for e in evs) / max(n_dev, 1) * 2
-        check(ransac_pnp.launches - n_before == 40 and n_dev > 0,
-              f"ransac_pnp S={S}: {ransac_pnp.launches - n_before} launches, {n_dev} traced")
+        n_launched = _build.launches()["ransac_pnp"] - n_before
+        check(n_launched == 40 and n_dev > 0,
+              f"ransac_pnp S={S}: {n_launched} launches, {n_dev} traced")
         bound, by = bound_pnp(S, N)
         share = 100.0 * bound / (device_us / 1e3)
         rows[S if N == 128 else (S, N)] = dict(ms=ms, plain_ms=plain_ms, device_us=device_us,
@@ -949,7 +948,7 @@ def phase_pnp(frames, seq) -> dict:
               f"100/70/30% inliers{same} | kernel {ms:.4f} ms a call (events) | device "
               f"{device_us:.2f} us a call (2 launches) | plain {plain_ms:.2f} ms | bound "
               f"{bound:.6f} ms ({by}), {share:.3f}% of it")
-    launches = ransac_pnp.launches
+    launches = _build.launches()["ransac_pnp"]
     dense = phase_dense_chunk(frames, seq)
     print(f"pnp: {time.perf_counter() - t0:.1f} s | launches {launches} (+{dense['launches']} on "
           f"the dense chunk path) | max abs err against plain {err}")
@@ -967,9 +966,6 @@ def phase_dense_chunk(frames, seq) -> dict:
     import dataclasses
 
     from svo_tpu_torch.config import Capacity, OrbParams
-    from svo_tpu_torch.geometry.pnp import ransac_pnp
-    from svo_tpu_torch.ops.fast import fast_nms
-    from svo_tpu_torch.ops.random import split_gumbel
     from svo_tpu_torch.parallel.batched import BatchedStereoVO
 
     staged = _stage_batched(frames, seq, "dense chunk path")
@@ -983,7 +979,7 @@ def phase_dense_chunk(frames, seq) -> dict:
     bvo = BatchedStereoVO(cfg, staged.cam, STREAMS, chunk=CHUNK, kf_cadence=CADENCE,
                           lk_engine="fused")
     bvo.start(staged.l0, staged.r0)
-    ransac_pnp.launches = ransac_pnp.slots = split_gumbel.launches = fast_nms.launches = 0
+    _build.reset_counters()
     bvo.process_chunk(*staged.chunks[0])
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -992,7 +988,9 @@ def phase_dense_chunk(frames, seq) -> dict:
     b.record()
     torch.cuda.synchronize()
     steps = 2 * CHUNK
-    got = (ransac_pnp.launches, ransac_pnp.slots, split_gumbel.launches, fast_nms.launches)
+    c = _build.counters()
+    got = (c["ransac_pnp.launches"], c["ransac_pnp.slots"], c["threefry.launches"],
+           c["fast_nms.launches"])
     want = (2 * steps, steps * STREAMS * 2048, steps, 8 * (steps // CADENCE))
     check(got == want, f"dense chunk path: ransac_pnp launches, slots, threefry launches and "
                        f"fast_nms launches (one an ORB level a keyframe step) {got}, "
@@ -1034,7 +1032,7 @@ def phase_fast_nms(frames) -> dict:
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    fast_nms.launches = fast_nms.pixels = 0
+    _build.set_counters({"fast_nms.launches": 0, "fast_nms.pixels": 0})
     lefts = np.stack([_u8(frames[i % len(frames)][1]) for i in range(max(FAST_STREAMS))])
     rng = np.random.default_rng(23)
     cases = []
@@ -1059,12 +1057,13 @@ def phase_fast_nms(frames) -> dict:
         fn = lambda: fast_nms(img, 20.0, mask)  # noqa: E731
         ms = median_ms(fn)
         plain_ms = median_ms(lambda: fast_nms_ref(img, 20.0, mask), reps=5, inner=2)
-        n_before = fast_nms.launches
+        n_before = _build.launches()["fast_nms"]
         evs = [e for e in device_events(lambda: [fn() for _ in range(20)]) if "fast_nms" in e.key]
         n_dev = sum(e.count for e in evs)
         device_us = sum(e.self_device_time_total for e in evs) / max(n_dev, 1)
-        check(fast_nms.launches - n_before == 20 and n_dev > 0,
-              f"fast_nms {tag}: {fast_nms.launches - n_before} launches, {n_dev} traced")
+        n_launched = _build.launches()["fast_nms"] - n_before
+        check(n_launched == 20 and n_dev > 0,
+              f"fast_nms {tag}: {n_launched} launches, {n_dev} traced")
         S, H, W = img.shape
         bound, by = bound_fast_nms(S, H, W, mask is not None)
         share = 100.0 * bound / (device_us / 1e3)
@@ -1074,10 +1073,11 @@ def phase_fast_nms(frames) -> dict:
               f"(events) | device {device_us:.2f} us a launch | plain {plain_ms:.3f} ms | bound "
               f"{bound:.6f} ms ({by}), {share:.2f}% of it")
     orb = [r for t, r in rows.items() if t.startswith("ORB")]
-    print(f"fast_nms: {time.perf_counter() - t0:.1f} s | launches {fast_nms.launches} | an ORB "
+    launches = _build.launches()["fast_nms"]
+    print(f"fast_nms: {time.perf_counter() - t0:.1f} s | launches {launches} | an ORB "
           f"keyframe's 8 levels: device {sum(r['device_us'] for r in orb):.2f} us, plain "
           f"{sum(r['plain_ms'] for r in orb):.3f} ms")
-    return dict(rows=rows, launches=fast_nms.launches, max_abs_err=0.0)
+    return dict(rows=rows, launches=launches, max_abs_err=0.0)
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1321,27 +1321,7 @@ def _expected_launches(engine: str, n_kf: int, steps: int = N_FRAMES - 1) -> int
     return per_frame * steps + per_kf * n_kf
 
 
-# the wrappers that launch each kernel: lk_level has the per-level entry and
-# the whole-call entry, counted together
-WRAPPERS = {"klt_patches": ("extract_klt_patches",),
-            "lk_level": ("lk_track_level", "lk_track_pyramid"),
-            "threefry": ("split_gumbel",),
-            "ransac_pnp": ("ransac_pnp",),
-            "fast_nms": ("fast_nms",)}
 PATH_KERNEL = {"patches": "klt_patches", "fused": "lk_level"}
-
-
-def _kernel_counts(counts: dict) -> dict:
-    return {k: sum(counts[w] for w in ws) for k, ws in WRAPPERS.items()}
-
-
-def _counts(kernels) -> dict:
-    return {k.__name__: k.launches for k in kernels}
-
-
-def _zero(kernels) -> None:
-    for k in kernels:
-        k.launches = 0
 
 
 def _levels(use_orb: bool) -> int:
@@ -1370,28 +1350,28 @@ def _want(name: str, engine: str, n_kf: int, steps: int, levels: int) -> int:
 
 
 def _check_launches(tag, engine, counts, n_kf, steps: int = N_FRAMES - 1, *, levels: int):
-    for name, count in _kernel_counts(counts).items():
+    for name, count in counts.items():
         want = _want(name, engine, n_kf, steps, levels)
         check(count == want, f"{tag} {engine}: {name} launched {count} times, expected {want}")
 
 
-def phase_main_path(kernels, frames, seq) -> tuple[dict, dict]:
+def phase_main_path(frames, seq) -> tuple[dict, dict]:
     """bench.py's single-stream path once per KLT engine, then a profiled
     chunk of each. The runs are warm: the small agreement runs have driven
     the whole pipeline on the card before, and the kernels are built and
     loaded (no separate warm run, to keep the script inside its time).
-    Returns the launches of each kernel wrapper in each engine's run, and
+    Returns the launches of each kernel in each engine's run, and
     each engine's ATE."""
     from svo_tpu_torch.eval.trajectory import ate_rmse
 
     launches, ates, warm = {}, {}, {}
     for engine in ENGINES:
-        _zero(kernels)
+        _build.reset_counters()
         torch.cuda.reset_peak_memory_stats()
         res = _run(frames, seq, "cuda", engine)
         peak = torch.cuda.max_memory_allocated()
         warm[engine] = res.fps
-        counts = _counts(kernels)
+        counts = _build.launches()
         launches[engine] = counts
         poses = res.poses
         check(poses.shape == (N_FRAMES, 4, 4), f"poses shape {poses.shape}")
@@ -1461,13 +1441,13 @@ def _stream_ates(trajs, staged) -> list:
     return [float(ate_rmse(trajs[s], staged.gts[s][:n])) for s in range(len(trajs))]
 
 
-def phase_batched_main_path(kernels, seq, staged) -> dict:
+def phase_batched_main_path(seq, staged) -> dict:
     """The batched main path: BatchedStereoVO with 8 streams in lockstep on
     bench.py's sequence (even streams forward, odd streams reversed), chunk
     12, keyframe cadence 6, all chunks staged on the card as uint8, once
     per KLT engine with accuracy and launch-count checks, each run timed
     (warm: the single-stream paths ran before), then a profiled 6-frame
-    chunk of each engine. Returns the launches of each kernel wrapper in
+    chunk of each engine. Returns the launches of each kernel in
     each engine's run, and each engine's aggregate frames/s and per-stream
     ATEs."""
     from svo_tpu_torch.parallel.batched import BatchedStereoVO
@@ -1489,12 +1469,12 @@ def phase_batched_main_path(kernels, seq, staged) -> dict:
 
     launches, warm, stream_ates = {}, {}, {}
     for engine in ENGINES:
-        _zero(kernels)
+        _build.reset_counters()
         torch.cuda.reset_peak_memory_stats()
         bvo, wall = drive(engine)
         peak = torch.cuda.max_memory_allocated()
         warm[engine] = S * n_stepped / wall
-        counts = _counts(kernels)
+        counts = _build.launches()
         launches[engine] = counts
         trajs = bvo.trajectories(n_stepped + 1)
         check(trajs.shape == (S, N_FRAMES, 4, 4), f"batched poses shape {trajs.shape}")
@@ -1729,7 +1709,7 @@ def _bent(state, F: int):
     return state._replace(poses=poses, pose=poses[:, F - 1])
 
 
-def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
+def phase_refined_main_path(staged, without: dict) -> SimpleNamespace:
     """bench.py's refined arm at full width: 8 streams, 376x1241, 97 frames,
     chunk 12, cadence 6, the fused engine, refine() (span 22, the defaults)
     every 2 chunks and at the last chunk inside the timed loop, the chunks
@@ -1775,12 +1755,12 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
     ates = {False: without["ates"]}
     staged_mib = sum(t.numel() for c in staged.chunks for t in c) / 2**20
     for turn, refine in enumerate((True,), start=1):
-        _zero(kernels)
+        _build.reset_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         bvo, wall, verdicts = drive(refine)
         peak = torch.cuda.max_memory_allocated() / 2**20
-        counts = _counts(kernels)
+        counts = _build.launches()
         trajs = bvo.trajectories(n_stepped + 1)
         check(all(bool(torch.isfinite(x).all()) for x in _leaves(bvo.state)
                   if x.is_floating_point()), f"refined arm turn {turn}: non-finite state")
@@ -1840,7 +1820,7 @@ def phase_refined_main_path(kernels, staged, without: dict) -> SimpleNamespace:
     return refined_bvo
 
 
-def phase_refine_graph(kernels, bvo) -> None:
+def phase_refine_graph(bvo) -> None:
     """svo_tpu's jitted, donated refiner (jax.jit(_refine,
     donate_argnums=(0,)); global_opt.make_refine_global): the conservative
     stage as one graph, the regime read once, one graph per regime, both
@@ -1849,8 +1829,10 @@ def phase_refine_graph(kernels, bvo) -> None:
     and on it with every stream's last 20 poses bent (aggressive in every
     stream): for S=8 (healthy first, then aggressive, then healthy again,
     replayed) and for stream 0 alone (S=1, aggressive first). Every leaf of
-    each result bit-equal; one regime read a sweep, the read the only host
-    sync of a replayed sweep (torch's sync debug mode); no counted kernel
+    each result bit-equal; each state in its regime; one regime read a
+    sweep, the read the only host sync of a replayed sweep (torch's sync
+    debug mode); for S=8 an aggressive sweep runs more device activities
+    than a healthy one (profiler), eager and replayed; no counted kernel
     launched; the capture seconds of each graph."""
     from unittest import mock
 
@@ -1865,12 +1847,13 @@ def phase_refine_graph(kernels, bvo) -> None:
     drifted = _bent(healthy, F)
     eager = make_refine_global(K, bfx, graph=False)
     one = [unstack(st)[0] for st in (healthy, drifted)]
-    for S, order in ((STREAMS, [healthy, drifted, healthy]), (1, [one[1], one[0]])):
+    cases = ((STREAMS, [(healthy, "healthy"), (drifted, "aggressive"), (healthy, "healthy")]),
+             (1, [(one[1], "aggressive"), (one[0], "healthy")]))
+    for S, order in cases:
         captured = make_refine_global(K, bfx)
-        _zero(kernels)
-        met = set()
+        _build.reset_counters()
         with mock.patch.object(global_opt, "_read_regime", wraps=global_opt._read_regime) as read:
-            for i, st in enumerate(order):
+            for i, (st, want_regime) in enumerate(order):
                 args = (st.map, st.poses, st.frame_id)
                 n_before = read.call_count
                 got = captured(*args)
@@ -1880,18 +1863,27 @@ def phase_refine_graph(kernels, bvo) -> None:
                 same = _bit_equal(got, want)
                 aggressive = (want.cost_per_obs > 10.0).reshape(-1).tolist()
                 regime = "aggressive" if any(aggressive) else "healthy"
-                met.add(regime)
                 print(f"refine graph S={S}, sweep {i + 1} ({regime}"
                       f"{', the first call: every graph captured' if i == 0 else ', replayed'}): "
                       f"bit-equal to refine_global in every leaf {same} | regime reads {sweep_reads} "
                       f"| streams aggressive {sum(aggressive)} of {len(aggressive)} | accepted "
                       f"{want.accepted.int().reshape(-1).tolist()}")
                 check(same, f"refine graph S={S} sweep {i + 1}: differs from refine_global")
+                check(regime == want_regime,
+                      f"refine graph S={S} sweep {i + 1}: the {want_regime} state is {regime}")
                 check(sweep_reads == 1, f"refine graph S={S}: {sweep_reads} regime reads a sweep")
-        check(met == {"healthy", "aggressive"}, f"refine graph S={S}: regimes met {met}")
+        if S == STREAMS:
+            for name, fn in (("eager", eager), ("replayed", captured)):
+                acts = {r: sum(e.count for e in device_events(
+                            lambda st=st: fn(st.map, st.poses, st.frame_id)))
+                        for st, r in order[:2]}
+                print(f"refine graph S={S} {name}: device activities a sweep {acts}")
+                check(acts["aggressive"] > acts["healthy"],
+                      f"refine graph S={S} {name}: the aggressive regime ran no more device "
+                      f"activities than the healthy one: {acts}")
         syncs = _host_syncs(lambda: captured(*args))
         check(syncs == 1, f"refine graph S={S}: {syncs} host syncs in a replayed sweep, expected 1")
-        counts = _counts(kernels)
+        counts = _build.launches()
         check(not any(counts.values()), f"the refiner launched counted kernels: {counts}")
         graph = captured.graph
         print(f"refine graph S={S}: graphs {sorted(graph.graphs)}, capture + instantiate s "
@@ -1907,8 +1899,7 @@ def phase_ba_throughput(bvo) -> None:
     last 10 frames (1024 point slots, 4096 observation slots) extracted
     from stream 0's live map after the refined run; 20 repetitions, eager
     and replayed (make_solve_ba: one graph, bit-equal to solve_ba; in this
-    worker, beside the others on the card: phase_refine_graph_timing reads
-    both alone)."""
+    worker, beside the others on the card)."""
     from svo_tpu_torch.ba.solver import make_solve_ba, solve_ba
     from svo_tpu_torch.ba.window import extract_window
     from svo_tpu_torch.pipeline.state import unstack
@@ -2169,7 +2160,7 @@ def _step_profile(frames, seq, use_orb: bool, engine: str = "fused") -> dict:
     return out
 
 
-def phase_shipping_main_path(kernels, frames, seq) -> dict:
+def phase_shipping_main_path(frames, seq) -> dict:
     """The shipping configuration (Config(): the ORB detector) through the
     port's own entry point, svo_tpu_torch.run_synthetic.main, in this
     process so that the launch counters stay readable: bench.py's 97-frame
@@ -2189,12 +2180,12 @@ def phase_shipping_main_path(kernels, frames, seq) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for tag, engine, cadence in (("a", "fused", CADENCE), ("b", "patches", 0)):
             path = os.path.join(tmp, f"{tag}.json")
-            _zero(kernels)
+            _build.reset_counters()
             rc = run_synthetic.main([
                 "--frames", str(N_FRAMES), "--chunk", str(CHUNK), "--cadence", str(cadence),
                 "--lk-engine", engine, "--device", "cuda", "--seed", "0",
                 "--out-json", path])
-            counts = _counts(kernels)
+            counts = _build.launches()
             with open(path) as f:
                 r = json.load(f)
             r.update(tag=tag, counts=counts)
@@ -2211,7 +2202,7 @@ def phase_shipping_main_path(kernels, frames, seq) -> dict:
             check(r["ate_m"] <= limit, f"shipping ({tag}): ATE {r['ate_m']} m > {limit} m")
             check(r["mean_inlier_ratio"] >= 0.8, f"shipping ({tag}): mean inlier ratio < 0.8")
             check(r["mean_features"] >= 60, f"shipping ({tag}): mean live features < 60")
-            for name, count in _kernel_counts(counts).items():
+            for name, count in counts.items():
                 want = _want(name, engine, r["keyframes"], N_FRAMES - 1, _levels(True))
                 check(count == want, f"shipping ({tag}): {name} launched {count} times, "
                                      f"expected {want}")
@@ -2225,7 +2216,7 @@ def phase_shipping_main_path(kernels, frames, seq) -> dict:
     return runs
 
 
-def phase_shipping_batched(kernels, staged) -> dict:
+def phase_shipping_batched(staged) -> dict:
     """The shipping configuration (ORB) on the batched path: 8 streams in
     lockstep (even forward, odd reversed), chunk 12, cadence 6, the fused
     engine, bench.py's chunks staged on the card: every stream's ATE under
@@ -2250,11 +2241,11 @@ def phase_shipping_batched(kernels, staged) -> dict:
         torch.cuda.synchronize()
         return bvo, time.perf_counter() - t0
 
-    _zero(kernels)
+    _build.reset_counters()
     torch.cuda.reset_peak_memory_stats()
     bvo, wall = drive()
     peak = torch.cuda.max_memory_allocated()
-    counts = _counts(kernels)
+    counts = _build.launches()
     trajs = bvo.trajectories(n_stepped + 1)
     check(bool(np.isfinite(trajs).all()), "batched ORB: NaN/inf in the poses")
     ates = _stream_ates(trajs, staged)
@@ -2336,7 +2327,7 @@ SOAK_FRAMES = 241    # 20 chunks of 12: the ring (32,768 slots) wraps once
 WORLDS_FRAMES = 49   # 4 chunks of 12 of each of the 16 sequences of 241 frames
 DIST_SHARDS = 8      # as svo_tpu_torch/multihost_ba_worker.py
 
-def phase_soak(kernels) -> dict:
+def phase_soak() -> dict:
     """svo_tpu_torch.soak at 376x1241, 241 frames (20 chunks), fused,
     refine_global every 2 chunks, a checkpoint at chunk 10 and 4 chunks
     re-run from it in a fresh engine. ~144 observations a frame wrap the
@@ -2348,13 +2339,13 @@ def phase_soak(kernels) -> dict:
     from svo_tpu_torch import soak
     from svo_tpu_torch.ba.window import extract_window
 
-    _zero(kernels)
+    _build.reset_counters()
     argv = ["--frames", str(SOAK_FRAMES), "--refine-every", str(REFINE_EVERY), "--ckpt-at", "10",
             "--resume-chunks", "4", "--lk-engine", "fused", "--device", "cuda"]
     t0 = time.perf_counter()
     r, vo = soak.soak(soak.parse_args(argv))
     wall = time.perf_counter() - t0
-    counts = _counts(kernels)
+    counts = _build.launches()
     cap, res = r["capacity"], r["resume"]
     st = vo.state
     fid = int(st.frame_id)
@@ -2384,7 +2375,7 @@ def phase_soak(kernels) -> dict:
     return dict(counts=counts, result=r)
 
 
-def phase_worlds(kernels) -> dict:
+def phase_worlds() -> dict:
     """svo_tpu_torch.eval_worlds: the eight worlds forward and reversed, 16
     streams of one BatchedStereoVO at 376x1241, the first 49 frames of each
     241-frame sequence, refine() every 2 chunks, no reference pipeline (the
@@ -2396,13 +2387,13 @@ def phase_worlds(kernels) -> dict:
     holds that launch against its plain version at these shapes)."""
     from svo_tpu_torch import eval_worlds
 
-    _zero(kernels)
+    _build.reset_counters()
     argv = ["--frames", "241", "--limit", str(WORLDS_FRAMES), "--refine-every", str(REFINE_EVERY),
             "--skip-ref", "--lk-engine", "fused", "--device", "cuda"]
     t0 = time.perf_counter()
     r, _ = eval_worlds.evaluate(eval_worlds.parse_args(argv))
     wall = time.perf_counter() - t0
-    counts = _counts(kernels)
+    counts = _build.launches()
     check(r["streams"] == WORLD_STREAMS,
           f"worlds: {r['streams']} streams, phase_lk_track checks {WORLD_STREAMS}")
     for row in r["worlds"]:
@@ -2440,7 +2431,7 @@ SVO_TPU_RECOVERY = {"span_abs_err_after_m": 0.4650324848444315,
 EUROC_MINI_ATE_M = 0.0455  # svo_tpu's EUROC_r05.json on tests/fixtures/euroc_mini
 
 
-def phase_recovery(kernels) -> dict:
+def phase_recovery() -> dict:
     """svo_tpu_torch.eval_recovery at 376x1241, fused, cut to 97 frames:
     corridor-base run healthily to frame 48, 4 degrees and 0.8 m of drift
     injected over frames 27-48 (the poses and the points born there), one
@@ -2456,13 +2447,13 @@ def phase_recovery(kernels) -> dict:
     launched by the launch rule over the healthy run and both arms."""
     from svo_tpu_torch import eval_recovery
 
-    _zero(kernels)
+    _build.reset_counters()
     argv = ["--frames", str(RECOVERY_FRAMES), "--inject-at", str(RECOVERY_INJECT_AT),
             "--span", "22", "--lk-engine", "fused", "--device", "cuda"]
     t0 = time.perf_counter()
     r, _ = eval_recovery.recovery(eval_recovery.parse_args(argv))
     wall = time.perf_counter() - t0
-    counts = _counts(kernels)
+    counts = _build.launches()
     print(f"recovery: {r['frames']} frames 376x1241 fused, drift at frame {r['inject_at']} over "
           f"{r['span']} frames: newest pose {r['newest_pose_err_m']:.4f} m off | sweep cost "
           f"{r['refine_cost_per_obs_px']:.4f} px/obs, aggressive {r['aggressive_fired']}, accepted "
@@ -2493,7 +2484,7 @@ def phase_recovery(kernels) -> dict:
     return dict(counts=counts, result=r)
 
 
-def phase_eval_ba(kernels, frames, seq) -> dict:
+def phase_eval_ba(frames, seq) -> dict:
     """svo_tpu_torch.eval_ba on the 97 frames rendered above: run_chunked
     (fused), then refine_global swept over the finished trajectory in
     22-frame spans (frames 21, 42, 63, 84 and 96) with eval_ba's sizes.
@@ -2501,13 +2492,13 @@ def phase_eval_ba(kernels, frames, seq) -> dict:
     launched by the launch rule; ATE before and after printed."""
     from svo_tpu_torch import eval_ba
 
-    _zero(kernels)
+    _build.reset_counters()
     args = eval_ba.parse_args(["--frames", str(N_FRAMES), "--lk-engine", "fused",
                                "--device", "cuda"])
     t0 = time.perf_counter()
     r, _ = eval_ba.evaluate(args, frames=frames, seq=seq)
     wall = time.perf_counter() - t0
-    counts = _counts(kernels)
+    counts = _build.launches()
     his = eval_ba.schedule(N_FRAMES, args.blocks, args.cams_per_block)
     print(f"eval_ba: {eval_ba.summary_line(r)} | spans ending at {r['his']}, accepted "
           f"{r['accepted']}, cost/obs {[round(c, 3) for c in r['cost_per_obs']]} | {wall:.1f} s | "
@@ -2520,7 +2511,7 @@ def phase_eval_ba(kernels, frames, seq) -> dict:
     return dict(counts=counts, result=r)
 
 
-def phase_eval_tables(kernels) -> dict:
+def phase_eval_tables() -> dict:
     """The table harnesses, each in this process: svo_tpu_torch.eval_fleet
     on a KITTI root built from tests/fixtures/kitti_mini (sequences/00,
     poses/00.txt; 96x320, chunk 6 and cadence 6, so 7 frames, patches),
@@ -2550,10 +2541,10 @@ def phase_eval_tables(kernels) -> dict:
                                        "--cadence", "6"]),
             ("synthetic", "fused", ["--seqs", "00,01", "--frames", "25"]),
         ):
-            _zero(kernels)
+            _build.reset_counters()
             r, _ = eval_fleet.evaluate(eval_fleet.parse_args(
                 argv + ["--lk-engine", engine, "--device", "cuda"]))
-            per_run[tag] = _counts(kernels)
+            per_run[tag] = _build.launches()
             check(len(r["rows"]) == (1 if tag == "kitti_mini" else 2), f"fleet {tag}: {r['rows']}")
             for row in r["rows"]:
                 rows.append((tag, row))
@@ -2562,9 +2553,9 @@ def phase_eval_tables(kernels) -> dict:
             _check_launches(f"fleet {tag}", engine, per_run[tag],
                             sum(row["keyframes"] for row in r["rows"]),
                             sum(row["frames"] - 1 for row in r["rows"]), levels=1)
-    _zero(kernels)
+    _build.reset_counters()
     e, _ = eval_euroc.evaluate(eval_euroc.parse_args(["--lk-engine", "patches", "--device", "cuda"]))
-    per_run["euroc_mini"] = _counts(kernels)
+    per_run["euroc_mini"] = _build.launches()
     wall = time.perf_counter() - t0
     for tag, row in rows:
         print(f"  fleet | {tag:<10} {row['seq']:>8} | {row['frames']} frames | ATE "
@@ -2581,15 +2572,14 @@ def phase_eval_tables(kernels) -> dict:
     _check_launches("euroc_mini", "patches", per_run["euroc_mini"], e["keyframes"], e["frames"] - 1,
                     levels=1)
     counts = {k: sum(c[k] for c in per_run.values()) for k in per_run["euroc_mini"]}
-    kc = _kernel_counts(counts)
-    check(kc["klt_patches"] > 0 and kc["lk_level"] > 0, f"eval tables: launches {kc}")
+    check(counts["klt_patches"] > 0 and counts["lk_level"] > 0, f"eval tables: launches {counts}")
     return dict(counts=counts, fleet=rows, euroc=e)
 
 
 TOOLS_FRAMES = 49  # the timing tools' depth on main's 97 frames: 4 chunks of 12
 
 
-def phase_tools(kernels, frames, seq) -> dict:
+def phase_tools(frames, seq) -> dict:
     """The port's developer tools on the card, each through its function, at
     the main path's width and cut depth (the first 49 frames of each of 8
     streams of main's 97-frame sequence, even forward, odd reversed):
@@ -2607,10 +2597,10 @@ def phase_tools(kernels, frames, seq) -> dict:
                                time_chunk)
     from svo_tpu_torch.ops.klt import patch_extraction_selftest
 
-    _zero(kernels)
+    _build.reset_counters()
     t0 = time.perf_counter()
     selftest = patch_extraction_selftest(torch.from_numpy(frames[1][1]).cuda())
-    n_self = _kernel_counts(_counts(kernels))["klt_patches"]
+    n_self = _build.launches()["klt_patches"]
     print(f"tools | patch_extraction_selftest on frame 1 ({SHAPE[0]}x{SHAPE[1]}, 64 features): max "
           f"|diff| {selftest} | klt_patches launches {n_self}")
     check(selftest == 0.0 and n_self == 1, f"self-test: {selftest}, {n_self} launches")
@@ -2620,7 +2610,7 @@ def phase_tools(kernels, frames, seq) -> dict:
     def check_run(tag, engine, before, starts, n_steps):
         """The kernel launches since `before` against the launch rule."""
         n_kf = starts + n_steps // CADENCE  # each start is a bootstrap (stereo) step
-        got = {k: n - before[k] for k, n in _kernel_counts(_counts(kernels)).items()}
+        got = {k: n - before.get(k, 0) for k, n in _build.launches().items()}
         for name, count in got.items():
             want = _want(name, engine, n_kf, n_steps, 1)
             check(count == want, f"{tag} {engine}: {name} launched {count} times, expected {want}")
@@ -2630,7 +2620,7 @@ def phase_tools(kernels, frames, seq) -> dict:
               f"{tag}: per-stream ATE {ates} (limit {ATE_LIMIT_M})")
 
     for engine in ENGINES:
-        before = _kernel_counts(_counts(kernels))
+        before = _build.launches()
         # [0]: the engine, and its graph's memory pool, go before the next one
         r = bench_batched.bench(bench_batched.parse_args(argv + ["--lk-engine", engine]),
                                 seq=seq, frames=frames)[0]
@@ -2638,7 +2628,7 @@ def phase_tools(kernels, frames, seq) -> dict:
               f"{' '.join(f'{a:.4f}' for a in r['ate_per_stream_m'])} m")
         check_ates(f"bench_batched {engine}", r["ate_per_stream_m"])
         check_run("bench_batched", engine, before, 2, CHUNK + steps)  # warm chunk + timed run
-    before = _kernel_counts(_counts(kernels))
+    before = _build.launches()
     r, _ = time_chunk.time_chunks(time_chunk.parse_args(argv + ["--reps", "2", "--lk-engine", "both"]),
                                   seq=seq, frames=frames)
     for line in time_chunk.summary_lines(r):
@@ -2646,7 +2636,7 @@ def phase_tools(kernels, frames, seq) -> dict:
     for engine, v in r["engines"].items():
         check_ates(f"time_chunk {engine}", v["ate_per_stream_m"])
         check(v["reps_bit_equal"], f"time_chunk {engine}: the two reps differ")
-    got = {k: n - before[k] for k, n in _kernel_counts(_counts(kernels)).items()}
+    got = {k: n - before.get(k, 0) for k, n in _build.launches().items()}
     n_kf = 3 + (CHUNK + 2 * steps) // CADENCE  # each engine: a warm chunk and 2 timed runs, 3 starts
     for engine in ENGINES:
         want = _expected_launches(engine, n_kf, CHUNK + 2 * steps)
@@ -2694,7 +2684,7 @@ def phase_tools(kernels, frames, seq) -> dict:
     print(f"tools | soak_ref 25 frames: ATE {sr['ate_m']} m ({sr['ate_pct_of_traveled']}% of "
           f"{sr['traveled_m']} m), {sr['fps']} frames/s, finite {sr['finite']}")
     check(sr["finite"] and np.isfinite(sr["ate_m"]), f"soak_ref: {sr}")
-    counts = _counts(kernels)
+    counts = _build.launches()
     print(f"tools: {time.perf_counter() - t0:.1f} s | launches {counts}")
     return dict(counts=counts, selftest=selftest, profile=p, klt=klt, microbench=mb)
 
@@ -2728,7 +2718,7 @@ def phase_distributed(frames, seq) -> dict:
     import torch.distributed as dist
 
     from svo_tpu_torch.ba import synthetic
-    from svo_tpu_torch.ba.solver import BAProblem, solve_ba
+    from svo_tpu_torch.ba.solver import solve_ba
     from svo_tpu_torch.eval.trajectory import ate_rmse
     from svo_tpu_torch.parallel import ba as dist_ba
     from svo_tpu_torch.parallel import global_opt, multihost
@@ -2919,7 +2909,7 @@ def phase_scaling() -> dict:
             [(i, lefts[i][s], rights[i][s]) for i in range(SCALING_FRONTEND_FRAMES)])
         check(np.array_equal(trajs[s], lone.poses),
               f"scaling frontend: stream {s} differs from StereoVO(seed={s})")
-    launches = {k: sum(a[k] for a in fe["launches"].values()) for k in WRAPPERS}
+    launches = {k: sum(a[k] for a in fe["launches"].values()) for k in fe["launches"]["1proc"]}
     print(f"scaling: {time.perf_counter() - t0:.1f} s | each stream equals StereoVO(seed=s) on "
           f"the card | launches {launches}")
     return dict(launches=launches, ba=point, frontend=fe)
@@ -2935,7 +2925,7 @@ def _state_diff(a, b) -> tuple[bool, float]:
     return same, float(dt)
 
 
-def phase_graph(kernels, frames, seq) -> dict:
+def phase_graph(frames, seq) -> dict:
     """svo_tpu's compiled chunk dispatch (jax.jit with the state donated;
     svo_tpu_torch/pipeline/graph.py): the cadenced chunk captured once as a
     CUDA graph and replayed, against the eager loop (graph=False) on the
@@ -2981,14 +2971,14 @@ def phase_graph(kernels, frames, seq) -> dict:
     for tag, drive, engine, use_orb in cases:
         run = {}
         for graph in (False, None):
-            _zero(kernels)
+            _build.reset_counters()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             eng, ates, n_kf = drive(engine, graph, use_orb)
             torch.cuda.synchronize()
             run[graph] = dict(eng=eng, ates=ates, n_kf=n_kf, wall=time.perf_counter() - t0,
-                              counts=_counts(kernels), peak=torch.cuda.max_memory_allocated())
+                              counts=_build.launches(), peak=torch.cuda.max_memory_allocated())
         eager, cap = run[False], run[None]
         step = cap["eng"]._chunk_step
         check(step.capture, f"graph {tag}: the default step was not captured")
@@ -3011,82 +3001,13 @@ def phase_graph(kernels, frames, seq) -> dict:
     return out
 
 
-def phase_graph_timing(frames, seq) -> dict:
-    """Readings of the captured chunk against the eager loop, alone on the
-    card, fused, one stream and 8 (bench.py's sequence; 8 streams even
-    forward, odd reversed): the host seconds of the capture and the
-    graph's instantiation; the wall of one warm 12-frame chunk, eager and
-    replayed in turns from the same saved state (the replay copies it into
-    the step's buffers first), 10 pairs; the device time and activities of
-    a replayed chunk (profiler) a frame step, and the busy share: device
-    time over the span from the replay's first device activity to its last
-    (traced kernels run a little longer than untraced ones, so device time
-    over the untraced wall can pass 1); peak device memory with the graph's
-    pool."""
-    from svo_tpu_torch.pipeline import frontend
-    from svo_tpu_torch.pipeline.state import clone
-
-    out = {}
-    for S in (1, STREAMS):
-        cfg, cam = _config_and_camera(seq, "cuda")
-        streams = [frames if s % 2 == 0 else frames[::-1] for s in range(S)]
-
-        def stage(ts, k):
-            x = np.stack([np.stack([_u8(st[t][k]) for st in streams]) for t in ts])
-            return torch.from_numpy(x if S > 1 else x[:, 0]).cuda()
-
-        first = [torch.from_numpy(np.stack([st[0][k] for st in streams])).cuda() for k in (1, 2)]
-        if S == 1:
-            first = [x[0] for x in first]
-        chunks = [tuple(stage(range(1 + c * CHUNK, 1 + (c + 1) * CHUNK), k) for k in (1, 2))
-                  for c in range(2)]
-        eager = frontend.make_cadenced_chunk_step(cam, cfg, CHUNK, CADENCE, "fused", graph=False)
-        captured = frontend.make_cadenced_chunk_step(cam, cfg, CHUNK, CADENCE, "fused")
-        st = frontend.make_bootstrap(cam, cfg, "fused")(*first, list(range(S)) if S > 1 else 0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        saved = clone(captured(st, *chunks[0]))  # the chunk run eagerly, then captured
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        walls = {"eager": [], "replay": []}
-        for _ in range(10):
-            for name, fn in (("eager", eager), ("replay", captured)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn(saved, *chunks[1])
-                torch.cuda.synchronize()
-                walls[name].append(1e3 * (time.perf_counter() - t0))
-        dev = device_events(lambda: captured(saved, *chunks[1]))
-        acts = sum(e.count for e in dev)
-        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        span_ms = (max(e.last_ns for e in dev) - min(e.first_ns for e in dev)) / 1e6
-        med = {k: float(np.median(v)) for k, v in walls.items()}
-        out[S] = dict(capture_s=captured.capture_s[()], eager_ms=walls["eager"],
-                      replay_ms=walls["replay"], device_ms_step=dev_ms / CHUNK,
-                      activities_step=acts / CHUNK, busy=dev_ms / span_ms,
-                      peak=peak, reserved=torch.cuda.memory_reserved())
-        print(f"graph timing S={S} fused, alone on the card: capture + instantiate "
-              f"{captured.capture_s[()]:.3f} s | warm 12-frame chunk wall, 10 pairs in turns: eager "
-              f"median {med['eager']:.1f} ms ({min(walls['eager']):.1f}-{max(walls['eager']):.1f}), "
-              f"replay median {med['replay']:.2f} ms ({min(walls['replay']):.2f}-"
-              f"{max(walls['replay']):.2f}), {med['eager'] / med['replay']:.1f}x | replayed "
-              f"chunk: {acts / CHUNK:.0f} device activities and {dev_ms / CHUNK:.3f} ms device "
-              f"time a frame step, busy share {dev_ms / span_ms:.3f} of its device span "
-              f"{span_ms:.2f} ms ({dev_ms / med['replay']:.3f} of the untraced replay wall) | "
-              f"peak device memory {peak / 2**20:.1f} MiB with the graph's pool, reserved "
-              f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB", flush=True)
-        check(acts > 0, f"graph timing S={S}: the profiler saw no device activity in a replay")
-        del eager, captured, st, saved, chunks
-    return out
-
-
 # the ATE these runs gave on the card before their frame steps were
 # captured (the shipping path (b), the window BA's path), which the
 # captured runs must give to the digit
 EAGER_ATE_M = {"shipping (b)": 0.0904, "ba": 0.0384}
 
 
-def phase_frame_graph(kernels, frames, seq) -> dict:
+def phase_frame_graph(frames, seq) -> dict:
     """svo_tpu's jitted frame step (jax.jit with the state donated, its
     lax.conds inside; svo_tpu_torch/pipeline/graph.py::FrameGraph): one
     whole-frame graph per branch key (any stream keyframes, any runs the
@@ -3141,7 +3062,7 @@ def phase_frame_graph(kernels, frames, seq) -> dict:
     for tag, drive, engine, cfg, chunk, cadence, eager_ate in cases:
         run = {}
         for graph in (False, None):
-            _zero(kernels)
+            _build.reset_counters()
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3149,7 +3070,7 @@ def phase_frame_graph(kernels, frames, seq) -> dict:
                 eng, step, ates, kf = drive(engine, graph, cfg, chunk, cadence)
             torch.cuda.synchronize()
             run[graph] = dict(eng=eng, step=step, ates=ates, kf=kf, keys=keys,
-                              wall=time.perf_counter() - t0, counts=_counts(kernels),
+                              wall=time.perf_counter() - t0, counts=_build.launches(),
                               peak=torch.cuda.max_memory_allocated())
         eager, cap = run[False], run[None]
         step = cap["step"]
@@ -3193,225 +3114,6 @@ def phase_frame_graph(kernels, frames, seq) -> dict:
     return out
 
 
-def phase_frame_graph_timing(frames, seq) -> dict:
-    """Readings of the captured frame step (make_step, the dynamic rule)
-    against the eager step, alone on the card, fused, one stream and 8
-    (bench.py's sequence; 8 streams even forward, odd reversed): the graphs
-    captured per key and their capture seconds; a warm 12-frame stretch
-    (frames 13-24) frame by frame, eager and replayed in turns from the
-    same saved state, 10 pairs, as frames/s; the device activities and
-    device time a frame step of a replayed stretch (profiler), against its
-    untraced wall; peak device memory with the graphs' pool."""
-    from svo_tpu_torch.pipeline import frontend
-    from svo_tpu_torch.pipeline.state import clone
-
-    out = {}
-    for S in (1, STREAMS):
-        cfg, cam = _config_and_camera(seq, "cuda")
-        streams = [frames if s % 2 == 0 else frames[::-1] for s in range(S)]
-
-        def stage(ts, k):
-            x = np.stack([np.stack([_u8(st[t][k]) for st in streams]) for t in ts])
-            return torch.from_numpy(x if S > 1 else x[:, 0]).cuda()
-
-        first = [torch.from_numpy(np.stack([st[0][k] for st in streams])).cuda() for k in (1, 2)]
-        if S == 1:
-            first = [x[0] for x in first]
-        stretches = [tuple(stage(range(1 + c * CHUNK, 1 + (c + 1) * CHUNK), k) for k in (1, 2))
-                     for c in range(2)]
-
-        def drive(step, st, stretch):
-            for left, right in zip(*stretch):
-                st = step(st, left, right)
-            return st
-
-        eager = frontend.make_step(cam, cfg, "fused", graph=False)
-        captured = frontend.make_step(cam, cfg, "fused")
-        st = frontend.make_bootstrap(cam, cfg, "fused")(*first, list(range(S)) if S > 1 else 0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        saved = clone(drive(captured, st, stretches[0]))  # each key's first step, then captured
-        drive(captured, saved, stretches[1])  # a key first met here is captured before the pairs
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        walls = {"eager": [], "replay": []}
-        for _ in range(10):
-            for name, fn in (("eager", eager), ("replay", captured)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                drive(fn, saved, stretches[1])
-                torch.cuda.synchronize()
-                walls[name].append(1e3 * (time.perf_counter() - t0))
-        dev = device_events(lambda: drive(captured, saved, stretches[1]))
-        acts = sum(e.count for e in dev)
-        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        med = {k: float(np.median(v)) for k, v in walls.items()}
-        fps = {k: [1e3 * S * CHUNK / w for w in v] for k, v in walls.items()}
-        out[S] = dict(keys=sorted(captured.graphs), capture_s=dict(captured.capture_s),
-                      eager_ms=walls["eager"], replay_ms=walls["replay"],
-                      device_ms_step=dev_ms / CHUNK, activities_step=acts / CHUNK, peak=peak)
-        print(f"frame graph timing S={S} fused, the dynamic rule frame by frame, alone on the "
-              f"card: graphs per key {sorted(captured.graphs)}, capture + instantiate s "
-              f"{ {k: round(v, 3) for k, v in captured.capture_s.items()} } | warm 12-frame "
-              f"stretch, 10 pairs in turns: eager median {med['eager']:.1f} ms "
-              f"({min(walls['eager']):.1f}-{max(walls['eager']):.1f}), "
-              f"{np.median(fps['eager']):.2f} frames/s; replayed median {med['replay']:.2f} ms "
-              f"({min(walls['replay']):.2f}-{max(walls['replay']):.2f}), "
-              f"{np.median(fps['replay']):.2f} frames/s{' aggregate' if S > 1 else ''}; "
-              f"{med['eager'] / med['replay']:.1f}x | replayed stretch: {acts / CHUNK:.0f} device "
-              f"activities and {dev_ms / CHUNK:.3f} ms device time a frame step, "
-              f"{dev_ms / med['replay']:.3f} of the untraced replayed wall | peak device memory "
-              f"{peak / 2**20:.1f} MiB with the graphs' pool", flush=True)
-        check(acts > 0, f"frame graph timing S={S}: the profiler saw no device activity")
-        del eager, captured, st, saved, stretches
-    return out
-
-
-def phase_refine_graph_timing(frames, seq) -> dict:
-    """Readings of the captured back-end against the eager one, alone on
-    the card: bench.py's refined arm (8 streams fused, chunks and sweeps
-    replayed, refine() every 2 chunks and at the last) run once for its
-    final state, with the peak device memory of the run (the staged chunks,
-    the chunk graph's pool and the refiner's included) and the refiner's
-    capture seconds by graph, then again, every graph captured, 3 pairs in
-    turns with the same run without refine(), as aggregate frames/s; then
-    one sweep in each regime from one saved
-    state (the final state, healthy; the same bent as phase_refined_main_path
-    bends it, aggressive), eager (refine_global) and replayed in turns, 10
-    pairs: wall (host clock around a synchronised sweep), device activities
-    and device time of one sweep (profiler), and the busy share, device time
-    over the median untraced wall; last bench.py's BA stage (solve_ba, 10 LM
-    iterations, stream 0's window of the last 10 frames), eager and
-    replayed (make_solve_ba) in turns, 10 pairs, as LM iterations/s, with
-    the device time an iteration of each."""
-    from svo_tpu_torch.ba.solver import make_solve_ba, solve_ba
-    from svo_tpu_torch.ba.window import extract_window
-    from svo_tpu_torch.parallel.batched import BatchedStereoVO
-    from svo_tpu_torch.parallel.global_opt import make_refine_global
-    from svo_tpu_torch.pipeline.state import clone, unstack
-
-    staged = _stage_batched(frames, seq, "refine graph timing")
-    staged_mib = sum(t.numel() for c in staged.chunks for t in c) / 2**20
-    bvo = BatchedStereoVO(staged.cfg, staged.cam, STREAMS, chunk=CHUNK, kf_cadence=CADENCE,
-                          lk_engine="fused")
-    bvo.make_refiner()
-    bvo.start(staged.l0, staged.r0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for i, c in enumerate(staged.chunks):
-        bvo.process_chunk(*c)
-        if (i + 1) % REFINE_EVERY == 0 or i == len(staged.chunks) - 1:
-            bvo.refine()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    graph = bvo.refiner.graph
-    print(f"refine graph timing: the refined arm, 8 streams, {run_s:.2f} s with every capture | "
-          f"refiner graphs {sorted(graph.graphs)}, capture + instantiate s "
-          f"{ {k: round(v, 3) for k, v in graph.capture_s.items()} } | peak device memory "
-          f"{peak:.1f} MiB allocated ({staged_mib:.1f} MiB of it the staged chunks), "
-          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved", flush=True)
-    K = bvo.camera.K
-    bfx = K[0, 0] * bvo.camera.baseline
-    healthy = clone(bvo.state)
-    drifted = _bent(healthy, staged.n_stepped + 1)
-
-    def run(refine: bool) -> float:
-        """The whole run again on the same engine, every graph captured."""
-        bvo.start(staged.l0, staged.r0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i, c in enumerate(staged.chunks):
-            bvo.process_chunk(*c)
-            if refine and ((i + 1) % REFINE_EVERY == 0 or i == len(staged.chunks) - 1):
-                bvo.refine()
-        torch.cuda.synchronize()
-        return STREAMS * staged.n_stepped / (time.perf_counter() - t0)
-
-    fps = {True: [], False: []}
-    for _ in range(3):
-        for refine in (True, False):
-            fps[refine].append(run(refine))
-    print(f"refine graph timing: the refined arm replayed (chunks and sweeps), 3 pairs in turns "
-          f"with the same run without refine(): aggregate frames/s "
-          f"{' '.join(f'{f:.2f}' for f in fps[True])} with, "
-          f"{' '.join(f'{f:.2f}' for f in fps[False])} without", flush=True)
-    del staged
-    eager = make_refine_global(K, bfx, graph=False)
-    fns = {"eager": eager, "replay": bvo.refiner}
-    out = dict(peak_mib=peak, staged_mib=staged_mib, capture_s=dict(graph.capture_s), fps=fps)
-
-    def pairs(fns, args):
-        walls = {k: [] for k in fns}
-        for _ in range(10):
-            for name, fn in fns.items():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn(*args)
-                torch.cuda.synchronize()
-                walls[name].append(1e3 * (time.perf_counter() - t0))
-        return walls
-
-    for regime, st in (("healthy", healthy), ("aggressive", drifted)):
-        args = (st.map, st.poses, st.frame_id)
-        check(bool((eager(*args).cost_per_obs > 10.0).any()) == (regime == "aggressive"),
-              f"refine graph timing: the {regime} state is not in that regime")
-        walls = pairs(fns, args)
-        row = {}
-        for name, fn in fns.items():
-            dev = device_events(lambda: fn(*args))
-            acts = sum(e.count for e in dev)
-            dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-            med = float(np.median(walls[name]))
-            row[name] = dict(walls_ms=walls[name], activities=acts, device_ms=dev_ms,
-                             busy=dev_ms / med)
-            check(acts > 0, f"refine graph timing: no device activity in a {name} sweep")
-        e, r = row["eager"], row["replay"]
-        me, mr = (float(np.median(walls[k])) for k in ("eager", "replay"))
-        print(f"refine graph timing, {regime} sweep, 8 streams, 10 pairs in turns, alone on the "
-              f"card: eager median {me:.2f} ms ({min(walls['eager']):.2f}-{max(walls['eager']):.2f}), "
-              f"{e['activities']} device activities, {e['device_ms']:.2f} ms device time, busy "
-              f"{e['busy']:.3f} | replayed median {mr:.2f} ms ({min(walls['replay']):.2f}-"
-              f"{max(walls['replay']):.2f}), {r['activities']} device activities, "
-              f"{r['device_ms']:.2f} ms device time, busy {r['busy']:.3f} | {me / mr:.1f}x",
-              flush=True)
-        out[regime] = row
-    for name in fns:
-        check(out["aggressive"][name]["activities"] > out["healthy"][name]["activities"],
-              f"refine graph timing: the aggressive regime ran no more than the conservative "
-              f"one ({name})")
-
-    iters = 10
-    st0 = unstack(healthy)[0]
-    problem, _ = extract_window(st0.map, st0.poses, st0.frame_id, n_cams=10, n_points=1024,
-                                n_obs=4096)
-    captured = make_solve_ba(K, bfx, iterations=iters)
-    solves = {"eager": lambda p: solve_ba(p, K, bfx, iterations=iters), "replay": captured}
-    same = _bit_equal(captured(problem), solves["eager"](problem))  # the capture, then a check
-    check(same, "refine graph timing: the replayed solve differs from solve_ba")
-    walls = pairs(solves, (problem,))
-    rates = {}
-    for name, fn in solves.items():
-        dev = device_events(lambda: fn(problem))
-        acts = sum(e.count for e in dev)
-        dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        rates[name] = dict(lm_per_s=[1e3 * iters / w for w in walls[name]],
-                           activities_iter=acts / iters, device_ms_iter=dev_ms / iters)
-    print(f"refine graph timing, bench.py's BA stage (solve_ba, {iters} LM iterations, "
-          f"{int(problem.obs_valid.sum())} observations), 10 pairs in turns: "
-          + " | ".join(f"{name} median {np.median(v['lm_per_s']):.1f} LM iterations/s "
-                       f"({min(v['lm_per_s']):.1f}-{max(v['lm_per_s']):.1f}), "
-                       f"{v['activities_iter']:.0f} device activities and "
-                       f"{v['device_ms_iter']:.3f} ms device time an iteration"
-                       for name, v in rates.items())
-          + f" | capture + instantiate {captured.graph.capture_s[()]:.3f} s | bit-equal {same}",
-          flush=True)
-    out["solve_ba"] = rates
-    del bvo, fns, eager, captured
-    return out
-
-
 def _group_single(ctx) -> dict:
     """One stream's main paths: the small agreement runs, bench.py's path
     with each engine, the window BA, the shipping configuration through
@@ -3421,11 +3123,11 @@ def _group_single(ctx) -> dict:
     for engine in ENGINES:
         phase_small_agreement_batched(engine)
     ctx.done("small agreement runs")
-    single, single_ates = phase_main_path(ctx.kernels, ctx.frames, ctx.seq)
+    single, single_ates = phase_main_path(ctx.frames, ctx.seq)
     ctx.done("single-stream main path")
     phase_ba_main_path(ctx.frames, ctx.seq, single_ates["fused"])
     ctx.done("single-stream main path with the window BA")
-    shipping = phase_shipping_main_path(ctx.kernels, ctx.frames, ctx.seq)
+    shipping = phase_shipping_main_path(ctx.frames, ctx.seq)
     ctx.done("shipping configuration (ORB) through run_synthetic")
     return {"launches_single_stream": [single[e] for e in ENGINES],
             "launches_shipping_orb": [shipping["a"]["counts"], shipping["b"]["counts"]]}
@@ -3441,22 +3143,22 @@ def _group_batched(ctx) -> dict:
     phase_backend_agreement()
     ctx.done("back-end agreement")
     staged = _stage_batched(ctx.frames, ctx.seq)
-    multi, batched_runs = phase_batched_main_path(ctx.kernels, ctx.seq, staged)
+    multi, batched_runs = phase_batched_main_path(ctx.seq, staged)
     ctx.done("batched main path")
-    shipping_batched = phase_shipping_batched(ctx.kernels, staged)
+    shipping_batched = phase_shipping_batched(staged)
     ctx.done("batched shipping configuration (ORB)")
-    refined_bvo = phase_refined_main_path(ctx.kernels, staged, batched_runs["fused"])
+    refined_bvo = phase_refined_main_path(staged, batched_runs["fused"])
     phase_ba_throughput(refined_bvo)
     ctx.done("refined batched main path and BA throughput")
-    phase_refine_graph(ctx.kernels, refined_bvo)
+    phase_refine_graph(refined_bvo)
     ctx.done("captured refiner against refine_global")
     del refined_bvo
     phase_checkpoint(staged)
     ctx.done("checkpoint and resume")
     del staged
-    recovery = phase_recovery(ctx.kernels)
+    recovery = phase_recovery()
     ctx.done("aggressive recovery on live state")
-    eval_ba_run = phase_eval_ba(ctx.kernels, ctx.frames, ctx.seq)
+    eval_ba_run = phase_eval_ba(ctx.frames, ctx.seq)
     ctx.done("refinement sweep over the finished trajectory")
     return {"launches_batched": [multi[e] for e in ENGINES],
             "launches_shipping_orb": [shipping_batched["counts"]],
@@ -3467,11 +3169,11 @@ def _group_batched(ctx) -> dict:
 def _group_long(ctx) -> dict:
     """The long runs and the tables: the soak, the worlds suite, the fleet
     table and the EuRoC artifact."""
-    soak = phase_soak(ctx.kernels)
+    soak = phase_soak()
     ctx.done("soak")
-    worlds = phase_worlds(ctx.kernels)
+    worlds = phase_worlds()
     ctx.done("worlds suite")
-    tables = phase_eval_tables(ctx.kernels)
+    tables = phase_eval_tables()
     ctx.done("fleet table and EuRoC artifact")
     return {"launches_soak": [soak["counts"]], "launches_worlds": [worlds["counts"]],
             "launches_eval_tables": [tables["counts"]]}
@@ -3480,7 +3182,7 @@ def _group_long(ctx) -> dict:
 def _group_graph(ctx) -> dict:
     """The captured chunk dispatch against the eager loop, then run_kitti
     on the fixture."""
-    graph = phase_graph(ctx.kernels, ctx.frames, ctx.seq)
+    graph = phase_graph(ctx.frames, ctx.seq)
     ctx.done("captured chunk dispatch against the eager loop")
     phase_cli_fixture()
     ctx.done("run_kitti on the KITTI fixture")
@@ -3490,7 +3192,7 @@ def _group_graph(ctx) -> dict:
 def _group_frames(ctx) -> dict:
     """The captured frame steps (the dynamic rule, the window BA) against
     the eager step, then the distributed paths."""
-    frame_graph = phase_frame_graph(ctx.kernels, ctx.frames, ctx.seq)
+    frame_graph = phase_frame_graph(ctx.frames, ctx.seq)
     ctx.done("captured frame steps against the eager step")
     phase_distributed(ctx.frames, ctx.seq)
     ctx.done("distributed paths")
@@ -3499,7 +3201,7 @@ def _group_frames(ctx) -> dict:
 
 def _group_tools(ctx) -> dict:
     """The developer tools and the scaling harness."""
-    tools = phase_tools(ctx.kernels, ctx.frames, ctx.seq)
+    tools = phase_tools(ctx.frames, ctx.seq)
     ctx.done("developer tools")
     scaling = phase_scaling()
     ctx.done("scaling harness")
@@ -3515,17 +3217,6 @@ def _group_tools(ctx) -> dict:
 WORKER_GROUPS = {"single": _group_single, "batched": _group_batched,
                  "long": _group_long, "tools": _group_tools, "graph": _group_graph,
                  "frames": _group_frames}
-
-
-def _kernels() -> list:
-    from svo_tpu_torch.ops.klt_patches import extract_klt_patches
-    from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
-    from svo_tpu_torch.geometry.pnp import ransac_pnp
-    from svo_tpu_torch.ops.fast import fast_nms
-    from svo_tpu_torch.ops.random import split_gumbel
-
-    return [extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp,
-            fast_nms]
 
 
 def _marker(t_start: float, walls: dict):
@@ -3552,8 +3243,7 @@ def worker(group: str, tmp: str, t_start: float) -> int:
     pairs = np.load(os.path.join(tmp, "frames.npy"))
     frames = [(i, pairs[i, 0], pairs[i, 1]) for i in range(N_FRAMES)]
     walls = {}
-    ctx = SimpleNamespace(frames=frames, seq=seq, kernels=_kernels(),
-                          done=_marker(t_start, walls))
+    ctx = SimpleNamespace(frames=frames, seq=seq, done=_marker(t_start, walls))
     out = WORKER_GROUPS[group](ctx)
     out["walls"] = walls
     with open(os.path.join(tmp, f"{group}.json"), "w") as f:
@@ -3639,19 +3329,13 @@ def main() -> int:
     done("RANSAC-PnP kernel against its plain version")
     fst = phase_fast_nms(frames)
     done("FAST + NMS kernel against its plain version")
-    phase_graph_timing(frames, seq)
-    done("captured chunk against the eager loop, timed")
-    phase_frame_graph_timing(frames, seq)
-    done("captured frame step against the eager step, timed")
-    phase_refine_graph_timing(frames, seq)
-    done("captured back-end against the eager one, timed")
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "frames.npy"), np.stack([f[1:] for f in frames]))
         del frames
         results = run_workers(tmp, t_start)
     for group in WORKER_GROUPS:
         walls.update(results[group].pop("walls"))
-    # the wrapper counts of every run on each path, then each kernel's
+    # the kernel launches of every run on each path
     runs = {}
     for key in ("launches_single_stream", "launches_batched", "launches_shipping_orb",
                 "launches_soak", "launches_worlds", "launches_recovery", "launches_eval_ba",
@@ -3662,7 +3346,7 @@ def main() -> int:
 
     def path_launches(name: str) -> dict:
         """launches_<path>: the kernel's launches on each path."""
-        per = {k: sum(_kernel_counts(c)[name] for c in cs) for k, cs in runs.items()}
+        per = {k: sum(c[name] for c in cs) for k, cs in runs.items()}
         per["launches_scaling"] = scaling_launches[name]
         check(per["launches_single_stream"] > 0 and per["launches_batched"] > 0
               and per["launches_shipping_orb"] > 0, f"{name} was not launched on a main path")

@@ -8,6 +8,14 @@ loaded with ctypes. The library goes to build/svo_tpu_torch/ at the
 repository root, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the existing library. Nothing
 is built at import: the first call that launches a kernel builds.
+
+This module owns the kernel set. A wrapper module declares each C entry it
+calls with entry() at import, beside the code that calls it, and calls it
+through launch(), which counts it. The counters live here, one name each,
+"<kernel>.<what>" with <kernel> the csrc/<kernel>.cu stem: "<kernel>.launches"
+for every kernel, and ransac_pnp.slots, fast_nms.pixels. The captured steps,
+the tracer and the tools read and set them through counters(),
+set_counters() and reset_counters().
 """
 
 from __future__ import annotations
@@ -19,6 +27,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -86,43 +97,53 @@ def library_path() -> Path:
     return out
 
 
+class Entry(NamedTuple):
+    symbol: str       # the C function, returning a CUDA error code (0: none)
+    argtypes: tuple   # its ctypes parameters, the stream's handle last
+    kernel: str       # the csrc/<kernel>.cu stem, which names its counters
+
+
+_entries: dict = {}   # symbol -> Entry, as the wrapper modules declare them
+_counters: dict = {}  # "<kernel>.<what>" -> count since the last reset
+
+
+def entry(symbol: str, argtypes, kernel: str, counts=("launches",)) -> Entry:
+    """Declare the C function `symbol` of csrc/<kernel>.cu with its ctypes
+    parameters (the stream's handle last, which launch() appends) and the
+    counters "<kernel>.<what>" for each `what` in counts, at 0. A wrapper
+    module calls it at import; nothing is built or loaded."""
+    e = Entry(symbol, tuple(argtypes), kernel)
+    if _entries.get(symbol, e) != e:
+        raise ValueError(f"{symbol} is declared twice, differently")
+    _entries[symbol] = e
+    for what in counts:
+        _counters.setdefault(f"{kernel}.{what}", 0)
+    if _lib is not None:
+        _bind(_lib, e)
+    return e
+
+
+def _bind(lib: ctypes.CDLL, e: Entry) -> None:
+    fn = getattr(lib, e.symbol)
+    fn.argtypes = list(e.argtypes)
+    fn.restype = ctypes.c_int
+
+
+def entries() -> dict:
+    """Every declared entry by its C name."""
+    return dict(_entries)
+
+
 def load() -> ctypes.CDLL:
-    """The loaded kernel library, with every function's C signature set."""
+    """The loaded kernel library, with every declared entry's C signature
+    set."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(library_path()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.svo_klt_patches.argtypes = [
-            p, p, p, p, i, i, i, p, p, p, p, p, i, i, i, p, p,
-        ]
-        lib.svo_klt_patches.restype = i
-        # eps2 and min_eig_threshold are C floats: without c_float ctypes
-        # refuses a Python float (or, under c_int, would cut it)
-        lib.svo_lk_level.argtypes = [
-            p, p, p, p, i, i, i, p, p, p, i, i, i, i, i, i, f, f, p, p,
-        ]
-        lib.svo_lk_level.restype = i
-        # the level table: host arrays of device pointers and of ints
-        lib.svo_lk_track.argtypes = [
-            ctypes.POINTER(p), ctypes.POINTER(i), i, i, p, p, p, i, i, i, i,
-            f, f, f, f, p, p,
-        ]
-        lib.svo_lk_track.restype = i
-        lib.svo_threefry_split_gumbel.argtypes = [p, i, i, p, p, p, p]
-        lib.svo_threefry_split_gumbel.restype = i
-        # the LO gates: host arrays of C floats
-        fp = ctypes.POINTER(f)
-        lib.svo_ransac_pnp.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, fp, i, fp, i, f, f, i, i, i, i, i, i, p, p, p, p, p,
-            p, p, p, p, p,
-        ]
-        lib.svo_ransac_pnp.restype = i
-        lib.svo_fast_nms.argtypes = [p, p, p, i, i, i, f, p]
-        lib.svo_fast_nms.restype = i
-        lib.svo_probe.argtypes = [i, p, p, p, i, p]
-        lib.svo_probe.restype = i
-        lib.svo_cuda_error_string.argtypes = [i]
+        lib.svo_cuda_error_string.argtypes = [ctypes.c_int]
         lib.svo_cuda_error_string.restype = ctypes.c_char_p
+        for e in _entries.values():
+            _bind(lib, e)
         _lib = lib
     return _lib
 
@@ -132,3 +153,48 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.svo_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+
+
+def launch(e: Entry, device, *args, what: str | None = None, launches: int = 1) -> None:
+    """Call entry e with args and the current stream of `device`, under a
+    torch.cuda.device guard so it launches on that card, building the
+    library at the first launch; raise RuntimeError (led by `what`, else the
+    kernel's name) on a CUDA error code; count `launches` kernel launches
+    into "<kernel>.launches"."""
+    lib = load()
+    with torch.cuda.device(device):
+        code = getattr(lib, e.symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(lib, code, what or e.kernel)
+    count(f"{e.kernel}.launches", launches)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to a declared counter (an undeclared name raises KeyError)."""
+    _counters[name] += n
+
+
+def counters() -> dict:
+    """A copy of every declared counter, by name."""
+    return dict(sorted(_counters.items()))
+
+
+def set_counters(values: dict) -> None:
+    """Set the named counters (each one declared) to the given values."""
+    unknown = set(values) - set(_counters)
+    if unknown:
+        raise KeyError(f"undeclared counters {sorted(unknown)}")
+    _counters.update(values)
+
+
+def reset_counters() -> None:
+    """Every counter back to 0."""
+    for name in _counters:
+        _counters[name] = 0
+
+
+def launches() -> dict:
+    """Each declared kernel's launches, by its csrc stem. A kernel whose
+    wrapper module is not imported yet is not declared: a reader of a
+    difference counts it from 0."""
+    return {name[: -len(".launches")]: n for name, n in counters().items()
+            if name.endswith(".launches")}

@@ -14,7 +14,7 @@ stream, all-gathered and folded in stream order. Start and 5 warm steps,
 then the remaining --frames - 6 steps timed between synchronisations of
 this process's devices. The JSON has svo_tpu's keys (rank, nprocs, wall_s,
 frames_per_s_aggregate, steps, streams, health_finite) plus this process's
-kernel launches by wrapper and its streams' keyframes (bootstraps
+kernel launches by kernel and its streams' keyframes (bootstraps
 included), from which the launch rule follows; --arrays writes every
 stream's trajectory (gathered, (2, frames, 4, 4)) as .npz.
 
@@ -87,11 +87,7 @@ def main(argv=None) -> int:
     import torch
     import torch.distributed as dist
 
-    from svo_tpu_torch.geometry.pnp import ransac_pnp
-    from svo_tpu_torch.ops.fast import fast_nms
-    from svo_tpu_torch.ops.klt_patches import extract_klt_patches
-    from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
-    from svo_tpu_torch.ops.random import split_gumbel
+    from svo_tpu_torch import _build
     from svo_tpu_torch.parallel import multihost
     from svo_tpu_torch.parallel.multi_seq import MultiStereoVO
     from svo_tpu_torch.pipeline.odometry import resolve_device
@@ -144,13 +140,7 @@ def main(argv=None) -> int:
             "backend": args.backend,
             "devices": [str(d) for d in devices],
             "keyframes": [int(s.state.kf_flags[:args.frames].sum()) for s in vo.streams],
-            "launches": {
-                "klt_patches": extract_klt_patches.launches,
-                "lk_level": lk_track_level.launches + lk_track_pyramid.launches,
-                "threefry": split_gumbel.launches,
-                "ransac_pnp": ransac_pnp.launches,
-                "fast_nms": fast_nms.launches,
-            },
+            "launches": _build.launches(),
         }
         if args.arrays:
             np.savez(args.arrays, trajectories=trajs)

@@ -425,6 +425,16 @@ class KernelStages(NamedTuple):
     inliers_lo: torch.Tensor  # (..., 2P + 1, N) bool
 
 
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the LO gates: host arrays of C floats
+_fp = ctypes.POINTER(_f)
+# counted: its launches and the correspondence slots handed to it (S x N a call)
+_RANSAC_PNP = _build.entry("svo_ransac_pnp", [
+    _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _fp, _i, _fp, _i, _f, _f, _i, _i, _i, _i, _i, _i,
+    _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+], "ransac_pnp", counts=("launches", "slots"))
+
+
 def ransac_pnp_kernel(K, Xw, uv, valid, noise, params: RansacParams, T_init=None,
                       stages: bool = False):
     """ransac_pnp on CUDA tensors through csrc/ransac_pnp.cu: two launches
@@ -442,7 +452,6 @@ def ransac_pnp_kernel(K, Xw, uv, valid, noise, params: RansacParams, T_init=None
     kp = kernel_params(params)
     split = kernel_split(S, N, H, P, _sms(dev.index if dev.index is not None
                                           else torch.cuda.current_device()))
-    lib = _build.load()
     lead = tuple(Xw.shape[:-2])
     K, Xw, uv, valid, noise = (t.contiguous() for t in (K, Xw, uv, valid, noise))
     T0 = T_init.contiguous() if P else None
@@ -457,18 +466,16 @@ def ransac_pnp_kernel(K, Xw, uv, valid, noise, params: RansacParams, T_init=None
     ratio = torch.empty(lead, **f32)
     ok = torch.empty(lead, dtype=torch.bool, device=dev)
     floats = lambda v: (ctypes.c_float * max(len(v), 1))(*v)  # noqa: E731
-    with torch.cuda.device(dev):
-        code = lib.svo_ransac_pnp(
-            K.data_ptr(), Xw.data_ptr(), uv.data_ptr(), valid.data_ptr(), noise.data_ptr(),
-            T0.data_ptr() if P else None, S, N, H, P, kp.iters,
-            floats(kp.strict), len(kp.strict), floats(kp.anneal), len(kp.anneal),
-            kp.thr2, kp.margin, *split, hyp.data_ptr(), chain.data_ptr(), cmask.data_ptr(),
-            best.data_ptr(), idx.data_ptr(), T_wc.data_ptr(), inliers.data_ptr(),
-            ratio.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, code, "ransac_pnp")
-    ransac_pnp.launches += 2
-    ransac_pnp.slots += S * N
+    _build.launch(
+        _RANSAC_PNP, dev,
+        K.data_ptr(), Xw.data_ptr(), uv.data_ptr(), valid.data_ptr(), noise.data_ptr(),
+        T0.data_ptr() if P else None, S, N, H, P, kp.iters,
+        floats(kp.strict), len(kp.strict), floats(kp.anneal), len(kp.anneal),
+        kp.thr2, kp.margin, *split, hyp.data_ptr(), chain.data_ptr(), cmask.data_ptr(),
+        best.data_ptr(), idx.data_ptr(), T_wc.data_ptr(), inliers.data_ptr(),
+        ratio.data_ptr(), ok.data_ptr(), launches=2,
+    )
+    _build.count("ransac_pnp.slots", S * N)
     result = PnPResult(T_wc=T_wc, inliers=inliers, inlier_ratio=ratio, ok=ok)
     if not stages:
         return result
@@ -502,7 +509,3 @@ def ransac_pnp(
     if Xw.device.type != "cuda":
         raise ValueError(f"unsupported device {Xw.device}")
     return ransac_pnp_kernel(K, Xw, uv, valid, noise, params, T_init)
-
-
-ransac_pnp.launches = 0  # kernel launches since the last reset
-ransac_pnp.slots = 0     # correspondence slots handed to the kernel (S x N a call) since then

@@ -14,6 +14,8 @@ tests hold the kernel against).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from svo_tpu_torch import _build
@@ -64,6 +66,12 @@ def fast_nms_ref(img: torch.Tensor, threshold: float,
     return score
 
 
+# counted: its launches and the pixels it scores (S x H x W a call)
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FAST_NMS = _build.entry("svo_fast_nms", [_p, _p, _p, _i, _i, _i, _f, _p], "fast_nms",
+                         counts=("launches", "pixels"))
+
+
 def fast_nms_kernel(img: torch.Tensor, threshold: float,
                     suppress: torch.Tensor | None = None) -> torch.Tensor:
     """fast_nms on CUDA tensors through csrc/fast_nms.cu: one launch for all
@@ -87,17 +95,11 @@ def fast_nms_kernel(img: torch.Tensor, threshold: float,
                          f"{tuple(suppress.shape)} on {suppress.device}")
     if img.device.type != "cuda":
         raise ValueError(f"the kernel runs on a CUDA device, not {img.device}")
-    lib = _build.load()
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        code = lib.svo_fast_nms(
-            img.data_ptr(), suppress.data_ptr() if suppress is not None else None,
-            out.data_ptr(), S, H, W, float(threshold),
-            torch.cuda.current_stream(img.device).cuda_stream,
-        )
-    _build.check(lib, code, "fast_nms")
-    fast_nms.launches += 1
-    fast_nms.pixels += S * H * W
+    _build.launch(_FAST_NMS, img.device, img.data_ptr(),
+                  suppress.data_ptr() if suppress is not None else None,
+                  out.data_ptr(), S, H, W, float(threshold))
+    _build.count("fast_nms.pixels", S * H * W)
     return out
 
 
@@ -113,7 +115,3 @@ def fast_nms(img: torch.Tensor, threshold: float,
     if img.device.type != "cuda":
         raise ValueError(f"unsupported device {img.device}")
     return fast_nms_kernel(img, threshold, suppress)
-
-
-fast_nms.launches = 0  # kernel launches since the last reset
-fast_nms.pixels = 0    # pixels scored by the kernel (S x H x W a call) since then

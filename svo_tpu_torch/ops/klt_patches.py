@@ -31,6 +31,8 @@ with (N,) corners are one stream.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from svo_tpu_torch import _build
@@ -97,6 +99,12 @@ def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.is_contiguous() else t.contiguous()
 
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_KLT_PATCHES = _build.entry("svo_klt_patches", [
+    _p, _p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p, _i, _i, _i, _p, _p,
+], "klt_patches")
+
+
 def extract_klt_patches(
     prev: torch.Tensor,
     gx: torch.Tensor,
@@ -126,22 +134,15 @@ def extract_klt_patches(
         raise ValueError("corners and valid must lie on the images' device")
     if px % 4:
         raise ValueError(f"the CUDA kernel stores 4 columns a thread: px={px} % 4 != 0")
-    lib = _build.load()
     H, W = prev.shape[-2:]
     S = prev.shape[0] if prev.dim() == 3 else 1
     N = valid.shape[-1]
     corners = [_as(c, torch.int32) for c in corners]
     v = _as(valid, torch.bool)  # the kernel reads a bool's byte
     out = torch.empty((4, *valid.shape, py, px), dtype=torch.float32, device=prev.device)
-    with torch.cuda.device(prev.device):  # the launch goes to the current card
-        code = lib.svo_klt_patches(
-            prev.data_ptr(), gx.data_ptr(), gy.data_ptr(), curr.data_ptr(), S, H, W,
-            *(c.data_ptr() for c in corners), v.data_ptr(), N, py, px, out.data_ptr(),
-            torch.cuda.current_stream(prev.device).cuda_stream,
-        )
-    _build.check(lib, code, "klt_patches")
-    extract_klt_patches.launches += 1
+    _build.launch(
+        _KLT_PATCHES, prev.device,
+        prev.data_ptr(), gx.data_ptr(), gy.data_ptr(), curr.data_ptr(), S, H, W,
+        *(c.data_ptr() for c in corners), v.data_ptr(), N, py, px, out.data_ptr(),
+    )
     return out.unbind(0)
-
-
-extract_klt_patches.launches = 0  # kernel launches since the last reset

@@ -214,6 +214,19 @@ def lk_track_level_ref(
     return d, min_eig, solvable, in_fin
 
 
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# eps2 and min_eig_threshold are C floats: without c_float ctypes
+# refuses a Python float (or, under c_int, would cut it)
+_LK_LEVEL = _build.entry("svo_lk_level", [
+    _p, _p, _p, _p, _i, _i, _i, _p, _p, _p, _i, _i, _i, _i, _i, _i, _f, _f, _p, _p,
+], "lk_level")
+# the level table: host arrays of device pointers and of ints
+_LK_TRACK = _build.entry("svo_lk_track", [
+    ctypes.POINTER(_p), ctypes.POINTER(_i), _i, _i, _p, _p, _p, _i, _i, _i, _i,
+    _f, _f, _f, _f, _p, _p,
+], "lk_level")
+
+
 def lk_track_level(
     prev: torch.Tensor,
     gx: torch.Tensor,
@@ -251,7 +264,6 @@ def lk_track_level(
         raise ValueError(f"unsupported device {prev.device}")
     if window > 32:
         raise ValueError(f"the CUDA kernel holds windows up to 32x32, got {window}")
-    lib = _build.load()
     H, W = prev.shape[-2:]
     S = prev.shape[0] if prev.dim() == 3 else 1
     N = valid.shape[-1]
@@ -260,19 +272,13 @@ def lk_track_level(
     imgs = [im.contiguous() for im in (prev, gx, gy, curr)]
     pos_c, guess_c, valid_c = pos.contiguous(), guess.contiguous(), valid.contiguous()
     out = torch.empty(tuple(valid.shape) + (8,), dtype=torch.float32, device=prev.device)
-    with torch.cuda.device(prev.device):  # the launch goes to the current card
-        code = lib.svo_lk_level(
-            *(im.data_ptr() for im in imgs), S, H, W,
-            pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), N,
-            window, py, margin_x, margin_y, max_iters, eps * eps, min_eig_threshold,
-            out.data_ptr(), torch.cuda.current_stream(prev.device).cuda_stream,
-        )
-    _build.check(lib, code, "lk_level")
-    lk_track_level.launches += 1
+    _build.launch(
+        _LK_LEVEL, prev.device, *(im.data_ptr() for im in imgs), S, H, W,
+        pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), N,
+        window, py, margin_x, margin_y, max_iters, eps * eps, min_eig_threshold,
+        out.data_ptr(),
+    )
     return guess + out[..., 0:2], out[..., 2], out[..., 3] > 0.5, out[..., 4] > 0.5
-
-
-lk_track_level.launches = 0  # kernel launches since the last reset
 
 
 def lk_track_pyramid_chain(
@@ -369,7 +375,6 @@ def lk_track_pyramid(
         raise ValueError(f"unsupported device {pos.device}")
     if window > 32:
         raise ValueError(f"the CUDA kernel holds windows up to 32x32, got {window}")
-    lib = _build.load()
     S = prev_levels[0].shape[0] if prev_levels[0].dim() == 3 else 1
     # the kernel reads image s of a level at base + s*H*W: a strided view
     # is copied to that layout here, never read as it lies
@@ -380,18 +385,12 @@ def lk_track_pyramid(
         dims.extend((*four[0].shape[-2:], pys[level], iters[level]))
     pos_c, guess_c, valid_c = pos.contiguous(), guess0.contiguous(), valid.contiguous()
     out = torch.empty((*valid.shape, 4), dtype=torch.float32, device=pos.device)
-    with torch.cuda.device(pos.device):  # the launch goes to the current card
-        code = lib.svo_lk_track(
-            (ctypes.c_void_p * (4 * L))(*(im.data_ptr() for im in imgs)),
-            (ctypes.c_int * (4 * L))(*dims), L, S,
-            pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), valid.shape[-1],
-            window, margin_x, margin_y, float(pad_x), float(pad_y), eps * eps,
-            min_eig_threshold, out.data_ptr(),
-            torch.cuda.current_stream(pos.device).cuda_stream,
-        )
-    _build.check(lib, code, "lk_level (whole call)")
-    lk_track_pyramid.launches += 1
+    _build.launch(
+        _LK_TRACK, pos.device,
+        (ctypes.c_void_p * (4 * L))(*(im.data_ptr() for im in imgs)),
+        (ctypes.c_int * (4 * L))(*dims), L, S,
+        pos_c.data_ptr(), guess_c.data_ptr(), valid_c.data_ptr(), valid.shape[-1],
+        window, margin_x, margin_y, float(pad_x), float(pad_y), eps * eps,
+        min_eig_threshold, out.data_ptr(), what="lk_level (whole call)",
+    )
     return out[..., 0:2], out[..., 2], out[..., 3] > 0.5
-
-
-lk_track_pyramid.launches = 0  # kernel launches since the last reset

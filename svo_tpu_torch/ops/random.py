@@ -31,6 +31,7 @@ kernel against on the card).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -141,6 +142,10 @@ def split_gumbel_ref(keys: torch.Tensor, shape, with_bits: bool = False):
     return (rng, noise, bits) if with_bits else (rng, noise)
 
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_THREEFRY = _build.entry("svo_threefry_split_gumbel", [_p, _i, _i, _p, _p, _p, _p], "threefry")
+
+
 def split_gumbel(keys: torch.Tensor, shape, with_bits: bool = False):
     """svo_tpu's frame-step draw, `rng, sub = split(key)` then
     `gumbel(sub, shape)`: keys (2,) or (S, 2) int32 -> (new keys of the
@@ -157,23 +162,13 @@ def split_gumbel(keys: torch.Tensor, shape, with_bits: bool = False):
     n = math.prod(shape)
     if not 0 < n < 2**31:
         raise ValueError(f"shape {shape}: the kernel takes 1 to 2**31 - 1 values a stream")
-    lib = _build.load()
     k = keys.contiguous()
     S = k.numel() // 2
     new_keys = torch.empty_like(k)  # not in place: other blocks still read the old key
     noise = torch.empty(keys.shape[:-1] + shape, dtype=torch.float32, device=keys.device)
     bits = torch.empty_like(noise, dtype=torch.int32) if with_bits else None
-    with torch.cuda.device(keys.device):
-        code = lib.svo_threefry_split_gumbel(
-            k.data_ptr(), S, n, new_keys.data_ptr(), noise.data_ptr(),
-            bits.data_ptr() if with_bits else None,
-            torch.cuda.current_stream(keys.device).cuda_stream,
-        )
-    _build.check(lib, code, "threefry")
-    split_gumbel.launches += 1
+    _build.launch(_THREEFRY, keys.device, k.data_ptr(), S, n, new_keys.data_ptr(),
+                  noise.data_ptr(), bits.data_ptr() if with_bits else None)
     if with_bits:
         return new_keys, noise, _u32(bits)
     return new_keys, noise
-
-
-split_gumbel.launches = 0  # kernel launches since the last reset

@@ -69,12 +69,12 @@ of the same step. A caller that keeps a state across a call clones it
 (pipeline/state.clone). The caller's own tensors are only read. Each step
 holds its own buffers and pool; both go with the step.
 
-Launch counts: a kernel wrapper counts its launches when it runs, which a
-replay does not do. So a capture records each counter's value before and
-after (each wrapper's launches, and ransac_pnp.slots, the correspondence
-slots handed to the PnP kernel), puts it back (a capture launches
-nothing), and each replay adds what its key's capture recorded: a captured
-run counts what the eager loop counts.
+Launch counts: a kernel wrapper counts its launches when it runs
+(_build.count, into the counters of _build.counters(): each kernel's
+launches, ransac_pnp.slots, fast_nms.pixels), which a replay does not do.
+So a capture records what it added to each counter, puts the counters back
+(a capture launches nothing), and each replay adds what its key's capture
+recorded: a captured run counts what the eager loop counts.
 
 Tracing (utils/tracing.py): a call's spans are load, pre, key and replay
 (capture at a graph's first occurrence). With the tracer on when a graph
@@ -95,23 +95,9 @@ import time
 
 import torch
 
-from svo_tpu_torch.geometry.pnp import ransac_pnp
-from svo_tpu_torch.ops.fast import fast_nms
-from svo_tpu_torch.ops.klt_patches import extract_klt_patches
-from svo_tpu_torch.ops.lk_fused import lk_track_level, lk_track_pyramid
-from svo_tpu_torch.ops.random import split_gumbel
+from svo_tpu_torch import _build
 from svo_tpu_torch.pipeline.state import leaves, unflatten
 from svo_tpu_torch.utils import tracing
-
-# the kernel wrappers that count their launches (`.launches`)
-COUNTED = (extract_klt_patches, lk_track_level, lk_track_pyramid, split_gumbel, ransac_pnp,
-           fast_nms)
-# every counter a replay adds to, by its name in launches_per_replay: each
-# wrapper's launches (under the wrapper's name), the PnP kernel's slots and
-# the FAST kernel's pixels
-COUNTERS = {f.__name__: (f, "launches") for f in COUNTED}
-COUNTERS["ransac_pnp.slots"] = (ransac_pnp, "slots")
-COUNTERS["fast_nms.pixels"] = (fast_nms, "pixels")
 
 # the first stage's graph, beside the keys of the second
 PRE = "pre"
@@ -181,7 +167,8 @@ class StepGraph:
 
     After a graph's capture on the card: capture_s[k], the host seconds of
     its capture and instantiation (k a key, or PRE for the first stage);
-    launches_per_replay[k], what one replay adds to each of COUNTERS.
+    launches_per_replay[k], what one replay adds to each of _build's
+    counters, by its name there.
     graphs: the graphs captured so far, by the same names."""
 
     def __init__(self, run, check, device, frame_dtype: torch.dtype | None = None,
@@ -258,8 +245,7 @@ class StepGraph:
                 tracing.replayed(self._marks.get(name))
                 self.graphs[name].replay()
             for counter, n in self.launches_per_replay[name].items():
-                obj, attr = COUNTERS[counter]
-                setattr(obj, attr, getattr(obj, attr) + n)
+                _build.count(counter, n)
         else:
             with tracing.span("capture"):
                 self._capture(name, body)
@@ -274,7 +260,7 @@ class StepGraph:
         with torch.cuda.stream(stream), tracing.eager(name, self.device):
             body()
         main.wait_stream(stream)
-        before = {k: getattr(obj, attr) for k, (obj, attr) in COUNTERS.items()}
+        before = _build.counters()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # no cyclic garbage collection inside the capture: a dead engine's
@@ -289,10 +275,8 @@ class StepGraph:
         finally:
             if collecting:
                 gc.enable()
-            recorded = {}
-            for k, (obj, attr) in COUNTERS.items():
-                recorded[k] = getattr(obj, attr) - before[k]
-                setattr(obj, attr, before[k])
+            recorded = {k: n - before.get(k, 0) for k, n in _build.counters().items()}
+            _build.set_counters(before)
         self.capture_s[name] = time.perf_counter() - t0
         self.launches_per_replay[name] = recorded
         self._marks[name] = marks

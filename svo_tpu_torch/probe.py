@@ -18,6 +18,7 @@ CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 import sys
 from typing import Callable, NamedTuple
 
@@ -99,6 +100,10 @@ PROBES = (
 )
 
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_PROBE = _build.entry("svo_probe", [_i, _p, _p, _p, _i, _p], "probe")
+
+
 def run_probe(probe: Probe, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     """The probe's (32, 1) result: the kernel on CUDA tensors, the plain
     version on CPU tensors. Raises RuntimeError with the CUDA error where
@@ -111,18 +116,11 @@ def run_probe(probe: Probe, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
         return probe.plain(x, o, probe.param)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    lib = _build.load()
     out = torch.zeros((ROWS, 1), dtype=torch.float32, device=x.device)
-    code = lib.svo_probe(
-        probe.which, x.contiguous().data_ptr(), o.contiguous().data_ptr(), out.data_ptr(),
-        probe.param, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, code, f"probe {probe.name}")
-    run_probe.launches += 1
+    _build.launch(_PROBE, x.device, probe.which, x.contiguous().data_ptr(),
+                  o.contiguous().data_ptr(), out.data_ptr(), probe.param,
+                  what=f"probe {probe.name}")
     return out
-
-
-run_probe.launches = 0  # kernel launches since the last reset
 
 
 def run_all(device="cuda", seed: int = 0, out=sys.stdout) -> list[dict]:

@@ -9,8 +9,8 @@ The counterpart of scripts/profile_chunk.py. S streams (even forward, odd
 reversed) of one staged chunk (_staging.py) go through BatchedStereoVO:
 one chunk to warm up, one timed chunk (wall between two
 synchronisations), then one chunk under torch.profiler with CPU and CUDA
-activities, the port's kernels' launches counted by their wrappers
-beside it. From the trace's device activities (kernels, fills, copies;
+activities, the port's kernels' launches (_build.launches(), by csrc
+stem) beside it. From the trace's device activities (kernels, fills, copies;
 _measure.device_events reads the same records) it prints their count and
 total device ms, device time and count by kernel name (top --top) and by
 kind: a kernel's function name without its template arguments and
@@ -114,26 +114,13 @@ def records(prof) -> tuple[list, list]:
     return device, rows
 
 
-def kernel_launches() -> dict:
-    """The port's kernels' launch counters (each wrapper's `launches`)."""
-    from svo_tpu_torch.geometry.pnp import ransac_pnp
-    from svo_tpu_torch.ops import lk_fused
-    from svo_tpu_torch.ops.fast import fast_nms
-    from svo_tpu_torch.ops.klt_patches import extract_klt_patches
-    from svo_tpu_torch.ops.random import split_gumbel
-
-    return {"klt_patches": extract_klt_patches.launches,
-            "lk_level": lk_fused.lk_track_level.launches + lk_fused.lk_track_pyramid.launches,
-            "threefry": split_gumbel.launches, "ransac_pnp": ransac_pnp.launches,
-            "fast_nms": fast_nms.launches}
-
-
 def profile(args: argparse.Namespace, seq=None, frames=None) -> dict:
     """The warm, timed and traced chunks; returns the result dict. A
     sequence and its rendered frames may be given (_staging.stage)."""
     import torch
     from torch.profiler import ProfilerActivity
 
+    from svo_tpu_torch import _build
     from svo_tpu_torch._measure import device_name
     from svo_tpu_torch.parallel.batched import BatchedStereoVO
 
@@ -155,13 +142,13 @@ def profile(args: argparse.Namespace, seq=None, frames=None) -> dict:
           file=sys.stderr, flush=True)
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    before = kernel_launches()
+    before = _build.launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         bvo.process_chunk(*chunk)
         _staging.sync(dev)
         traced_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k: n - before[k] for k, n in kernel_launches().items()}
+    launches = {k: n - before.get(k, 0) for k, n in _build.launches().items()}
     device, host = records(prof)
     host = [r for r in table(host) if r["ms"] > 0]
     if dev.type == "cuda":

@@ -61,13 +61,13 @@ drain() returns and clears the records (JSON-ready; times in host ns):
                    name and request and the graph's key; frames: [[[stage, t_ns], ...],
                    ...], one list a frame step (a cadenced chunk has one a frame)
     marks_skipped: replays whose marks had not completed when the graph replayed again
-    counters:      with the tracer on and only where one moved: {"<wrapper>.launches":
-                   n, "ransac_pnp.slots": n, "fast_nms.pixels": n}, what each of the frame
-                   step's counters (pipeline/graph.COUNTERS: each kernel wrapper's
-                   launches, the correspondence slots handed to the PnP kernel, the
-                   pixels the FAST kernel scored) added since the
-                   tracer's last reset or drain, replays included; slots over half the
-                   launches is S x N, the size the PnP kernel ran at
+    counters:      with the tracer on and only where one moved: {"<kernel>.launches":
+                   n, "ransac_pnp.slots": n, "fast_nms.pixels": n}, what each of the
+                   kernels' counters (_build.counters(): each kernel's launches, the
+                   correspondence slots handed to the PnP kernel, the pixels the FAST
+                   kernel scored) added since the tracer's last reset or drain,
+                   replays included; slots over half the launches is S x N, the size
+                   the PnP kernel ran at
 
 Drain a long run now and then: every interval and eager mark holds its
 events until it is read. The records are one process's, written by the
@@ -80,6 +80,8 @@ import contextlib
 import time
 
 import torch
+
+from svo_tpu_torch import _build
 
 PREFIX = "svo."
 # the frame step's stages in order (pipeline/frontend.step_body), and the
@@ -153,13 +155,6 @@ def disable() -> None:
     _on = False
 
 
-def _counters() -> dict:
-    """The frame step's counters now, by "<wrapper>.<attribute>"."""
-    from svo_tpu_torch.pipeline.graph import COUNTERS  # graph imports this module
-
-    return {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in COUNTERS.values()}
-
-
 def reset() -> None:
     """Drop every record and unread mark, and (on) anchor the devices again."""
     global _skipped, _base
@@ -169,7 +164,7 @@ def reset() -> None:
         lst.clear()
     _skipped = 0
     _counts.clear()
-    _base = _counters() if _on else {}
+    _base = _build.counters() if _on else {}
     devices = set(_anchors)
     _anchors.clear()
     if not _on:
@@ -359,7 +354,7 @@ def drain() -> dict:
         "marks_skipped": _skipped,
     }
     if _on:
-        now = _counters()
+        now = _build.counters()
         moved = {k: v - _base.get(k, 0) for k, v in now.items() if v != _base.get(k, 0)}
         if moved:
             out["counters"] = moved

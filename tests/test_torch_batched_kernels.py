@@ -28,7 +28,7 @@ from svo_tpu.ops import klt as jklt
 from svo_tpu.ops.klt import KltTracker as JKlt
 from svo_tpu.ops.klt_pallas import extract_klt_patches as jax_extract
 from svo_tpu.ops.lk_pallas import lk_track_level as j_level
-from svo_tpu_torch import probe
+from svo_tpu_torch import _build, probe
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry.pnp import ransac_pnp
 from svo_tpu_torch.ops.random import gumbel, prng_key
@@ -79,9 +79,9 @@ def test_batched_extraction_matches_pallas_batched_rule():
         )
     )
     want = fn(*map(jnp.asarray, padded), *map(jnp.asarray, corners), jnp.asarray(valid))
-    before = extract_klt_patches.launches
+    before = _build.counters()["klt_patches.launches"]
     got = extract_klt_patches(*map(_t, imgs), *map(_t, corners), _t(valid), py=PY, px=PX)
-    assert extract_klt_patches.launches == before  # CPU: plain version, no launch
+    assert _build.counters()["klt_patches.launches"] == before  # CPU: plain version, no launch
     for g, w in zip(got, want):
         assert tuple(g.shape) == (S, valid.shape[1], PY, PX)
         assert float(np.abs(g.numpy() - np.asarray(w)).max()) == 0.0
@@ -181,11 +181,11 @@ def test_batched_level_matches_lk_pallas_batched_rule(level_inputs):
     dj, ej, sj, ij = (np.asarray(a) for a in jax.vmap(one)(
         *map(jnp.asarray, imgs), jnp.asarray(p_pad), jnp.asarray(guess), jnp.asarray(valid)
     ))
-    before = t_level.launches
+    before = _build.counters()["lk_level.launches"]
     dt, et, st, it = (a.numpy() for a in t_level(
         *map(_t, imgs), _t(p_pad), _t(guess), _t(valid), **kw
     ))
-    assert t_level.launches == before  # CPU: plain version, no launch
+    assert _build.counters()["lk_level.launches"] == before  # CPU: plain version, no launch
     assert dt.shape == guess.shape and st.shape == valid.shape
     assert (sj == st).mean() >= 0.99 and (ij == it).mean() >= 0.99
     ok = sj & ij & st & it
@@ -362,9 +362,9 @@ def test_index_helpers_follow_jax_semantics():
 def test_probe_plain_versions(p):
     x, o = probe.make_inputs(0)
     assert x.shape == (32, 48, 64) and o.shape == (32, 8)
-    before = probe.run_probe.launches
+    before = _build.counters()["probe.launches"]
     got = probe.run_probe(p, x, o)
-    assert probe.run_probe.launches == before  # CPU: plain version, no launch
+    assert _build.counters()["probe.launches"] == before  # CPU: plain version, no launch
     assert tuple(got.shape) == (32, 1) and bool(torch.isfinite(got).all())
     if p.name == "float2int-clamp":
         # NaN, +inf, -inf land on the clamp's ends; finite values inside

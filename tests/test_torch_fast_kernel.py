@@ -72,6 +72,12 @@ def plateau(shape=(64, 96)) -> np.ndarray:
     return img[None]
 
 
+def _counts() -> tuple:
+    """The kernel's (launches, pixels) counters."""
+    c = _build.counters()
+    return c["fast_nms.launches"], c["fast_nms.pixels"]
+
+
 def suppress_mask(shape, seed: int = 1) -> np.ndarray:
     """A bool mask the image's shape: 21x21 squares around random points,
     as nms.suppression_mask makes them."""
@@ -92,7 +98,7 @@ def test_cpu_takes_the_plain_path_and_launches_nothing(monkeypatch):
         raise AssertionError("the CPU path built or loaded the kernel library")
 
     monkeypatch.setattr(_build, "load", no_build)
-    fast.fast_nms.launches = fast.fast_nms.pixels = 0
+    _build.set_counters({"fast_nms.launches": 0, "fast_nms.pixels": 0})
     img = torch.from_numpy(random_stack(2, (40, 70)))
     mask = torch.from_numpy(suppress_mask((2, 40, 70)))
     for m in (None, mask):
@@ -102,7 +108,7 @@ def test_cpu_takes_the_plain_path_and_launches_nothing(monkeypatch):
         got = fast.fast_nms(img, 20.0, m)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         assert torch.equal(got, fast.fast_nms_ref(img, 20.0, m))
-    assert fast.fast_nms.launches == 0 and fast.fast_nms.pixels == 0
+    assert _counts() == (0, 0)
 
 
 @pytest.mark.parametrize("case", ["dtype", "strided", "rank", "empty", "mask_dtype",
@@ -112,7 +118,7 @@ def test_unsupported_input_raises_before_any_launch(monkeypatch, case):
         raise AssertionError("the kernel library was loaded before the input was checked")
 
     monkeypatch.setattr(_build, "load", no_build)
-    fast.fast_nms.launches = 0
+    _build.set_counters({"fast_nms.launches": 0})
     img = torch.from_numpy(random_stack(2, (40, 70)))
     mask = torch.from_numpy(suppress_mask((2, 40, 70)))
     want = {"dtype": "float32", "strided": "contiguous", "rank": "float32",
@@ -134,19 +140,24 @@ def test_unsupported_input_raises_before_any_launch(monkeypatch, case):
         mask = mask.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match=want):
         fast.fast_nms_kernel(img, 20.0, mask)
-    assert fast.fast_nms.launches == 0
+    assert _counts()[0] == 0
 
 
 def test_counters_are_the_frame_steps():
-    """A replay adds the kernel's launches and pixels (graph.COUNTERS), and
-    the tracer's drain() names them."""
-    from svo_tpu_torch.pipeline import graph
+    """The kernel's launches and pixels are counters of _build, the ones a
+    replay adds to (pipeline/graph.py), and the tracer's drain() names
+    them."""
     from svo_tpu_torch.utils import tracing
 
-    assert fast.fast_nms in graph.COUNTED
-    assert graph.COUNTERS["fast_nms"] == (fast.fast_nms, "launches")
-    assert graph.COUNTERS["fast_nms.pixels"] == (fast.fast_nms, "pixels")
-    assert {"fast_nms.launches", "fast_nms.pixels"} <= set(tracing._counters())
+    assert {"fast_nms.launches", "fast_nms.pixels"} <= set(_build.counters())
+    tracing.enable()
+    try:
+        _build.count("fast_nms.launches")
+        _build.count("fast_nms.pixels", 2 * 40 * 70)
+        assert tracing.drain()["counters"] == {"fast_nms.launches": 1,
+                                               "fast_nms.pixels": 2 * 40 * 70}
+    finally:
+        tracing.disable()
 
 
 @pytest.mark.parametrize("kind", ["uint8_noise", "corridor", "corridor_levels", "plateau"])
@@ -282,16 +293,16 @@ def test_captured_replay_equals_eager_and_counts():
     S = 8
     img = torch.from_numpy(frame_stack(S, seed=2)).to(dev)
     mask = torch.from_numpy(suppress_mask((S,) + KITTI)).to(dev)
-    fast.fast_nms.launches = fast.fast_nms.pixels = 0
+    _build.set_counters({"fast_nms.launches": 0, "fast_nms.pixels": 0})
     fast.fast_nms(img, 20.0, mask)  # warm-up, builds the library
-    assert (fast.fast_nms.launches, fast.fast_nms.pixels) == (1, S * KITTI[0] * KITTI[1])
+    assert _counts() == (1, S * KITTI[0] * KITTI[1])
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side), torch.cuda.graph(graph):
         out = fast.fast_nms(img, 20.0, mask)
     torch.cuda.current_stream().wait_stream(side)
-    assert (fast.fast_nms.launches, fast.fast_nms.pixels) == (2, 2 * S * KITTI[0] * KITTI[1])
+    assert _counts() == (2, 2 * S * KITTI[0] * KITTI[1])
     for seed in (3, 4):
         img.copy_(torch.from_numpy(frame_stack(S, seed=seed)))
         mask.copy_(torch.from_numpy(suppress_mask((S,) + KITTI, seed=seed)))
@@ -320,10 +331,10 @@ def test_detect_through_the_kernel_equals_the_plain_path(monkeypatch, use_orb):
     prev = np.stack([rng.uniform(0, KITTI[1], (S, N)), rng.uniform(0, KITTI[0], (S, N))], -1)
     prev = torch.from_numpy(prev.astype(np.float32)).to(dev)
     pv = torch.from_numpy(rng.random((S, N)) > 0.5).to(dev)
-    fast.fast_nms.launches = 0
+    _build.set_counters({"fast_nms.launches": 0})
     got = detect.detect(img, prev, pv, cfg)
     torch.cuda.synchronize()
-    assert fast.fast_nms.launches == (cfg.orb_params.pyr_levels if use_orb else 1)
+    assert _counts()[0] == (cfg.orb_params.pyr_levels if use_orb else 1)
     monkeypatch.setattr(detect.fast, "fast_nms", fast.fast_nms_ref)
     want = detect.detect(img, prev, pv, cfg)
     torch.cuda.synchronize()

@@ -15,6 +15,7 @@ import torch
 
 from svo_tpu.ops.klt import _extract_patches_xla
 from svo_tpu.ops.klt_pallas import extract_klt_patches as jax_extract
+from svo_tpu_torch import _build
 from svo_tpu_torch.ops.klt_patches import extract_klt_patches, extract_klt_patches_ref
 
 torch.set_num_threads(2)
@@ -64,9 +65,9 @@ def test_matches_pallas_kernel_interpret(W_true, dead):
         *map(jnp.asarray, padded), *map(jnp.asarray, corners), jnp.asarray(valid),
         py=PY, px=PX, interpret=True,
     )
-    before = extract_klt_patches.launches
+    before = _build.counters()["klt_patches.launches"]
     got = _port(imgs, corners, valid)
-    assert extract_klt_patches.launches == before  # CPU: plain version, no launch
+    assert _build.counters()["klt_patches.launches"] == before  # CPU: plain version, no launch
     for g, w in zip(got, want):
         assert tuple(g.shape) == (N, PY, PX)
         assert float(np.abs(g.numpy() - np.asarray(w)).max()) == 0.0

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from svo_tpu_torch import _build
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.io.synthetic import SyntheticSequence
 from svo_tpu_torch.ops import klt as tklt
@@ -191,9 +192,9 @@ def test_pyramid_ref_is_the_chain_of_level_refs(stereo):
     prev_levels, grads, curr_levels, kw = _run_args(ALL_FUSED, params, stereo)
     pos, valid = _features(ALL_FUSED)
     guess0 = torch.full_like(pos, 0.01)
-    before = lk_fused.lk_track_pyramid.launches, lk_fused.lk_track_level.launches
+    before = _build.counters()["lk_level.launches"]
     got = lk_fused.lk_track_pyramid(prev_levels, grads, curr_levels, pos, guess0, valid, **kw)
-    assert (lk_fused.lk_track_pyramid.launches, lk_fused.lk_track_level.launches) == before
+    assert _build.counters()["lk_level.launches"] == before
     ref = lk_fused.lk_track_pyramid_ref(prev_levels, grads, curr_levels, pos, guess0, valid, **kw)
     chain = lk_fused.lk_track_pyramid_chain(
         lk_fused.lk_track_level_ref, prev_levels, grads, curr_levels, pos, guess0, valid, **kw)

@@ -176,11 +176,11 @@ def test_cpu_takes_the_plain_path_and_launches_nothing(monkeypatch):
         raise AssertionError("the CPU path built or loaded the kernel library")
 
     monkeypatch.setattr(_build, "load", no_build)
-    pnp.ransac_pnp.launches = 0
+    _build.set_counters({"ransac_pnp.launches": 0})
     args = batch([3, 4], "cpu", inlier_share=0.7)
     got = pnp.ransac_pnp(*args[:5], RansacParams(), T_init=args[5])
     want = pnp.ransac_pnp_ref(*args[:5], RansacParams(), T_init=args[5])
-    assert pnp.ransac_pnp.launches == 0
+    assert _build.counters()["ransac_pnp.launches"] == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -191,7 +191,7 @@ def test_unsupported_shape_raises_before_any_launch(monkeypatch, case):
         raise AssertionError("the kernel library was loaded before the shape was checked")
 
     monkeypatch.setattr(_build, "load", no_build)
-    pnp.ransac_pnp.launches = 0
+    _build.set_counters({"ransac_pnp.launches": 0})
     K, Xw, uv, valid, noise, T_init = batch([1, 2], "cpu")
     params = RansacParams()
     want = {"N": "N <= 2048", "dtype": "float32", "rounds": "at most 8",
@@ -209,7 +209,7 @@ def test_unsupported_shape_raises_before_any_launch(monkeypatch, case):
         Xw, uv, valid, noise, T_init = (t[:0] for t in (Xw, uv, valid, noise, T_init))
     with pytest.raises(ValueError, match=want):
         pnp.ransac_pnp_kernel(K, Xw, uv, valid, noise, params, T_init)
-    assert pnp.ransac_pnp.launches == 0
+    assert _build.counters()["ransac_pnp.launches"] == 0
 
 
 @pytest.mark.parametrize("anneal", [(4.0, 1.0), (3.0, 1.7, 1.0), (2.5,)])
@@ -492,16 +492,16 @@ def test_captured_replay_equals_eager_and_counts_launches():
     dev = _card()
     params = RansacParams()
     static = [a.clone() for a in batch(list(range(8)), dev, inlier_share=0.7)]
-    pnp.ransac_pnp.launches = 0
+    _build.set_counters({"ransac_pnp.launches": 0})
     pnp.ransac_pnp(*static[:5], params, T_init=static[5])  # warm-up, builds the library
-    assert pnp.ransac_pnp.launches == 2
+    assert _build.counters()["ransac_pnp.launches"] == 2
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side), torch.cuda.graph(graph):
         out = pnp.ransac_pnp(*static[:5], params, T_init=static[5])
     torch.cuda.current_stream().wait_stream(side)
-    assert pnp.ransac_pnp.launches == 4
+    assert _build.counters()["ransac_pnp.launches"] == 4
     for seeds in (range(8, 16), range(16, 24)):
         fresh = batch(list(seeds), dev, inlier_share=0.7)
         for dst, src in zip(static, fresh):
@@ -619,9 +619,10 @@ def test_kernel_wide_captured_counts_launches_and_slots():
     dev = _card()
     params = RansacParams()
     static = [a.clone() for a in batch(list(range(8)), dev, inlier_share=0.7, N=2048)]
-    pnp.ransac_pnp.launches = pnp.ransac_pnp.slots = 0
+    _build.set_counters({"ransac_pnp.launches": 0, "ransac_pnp.slots": 0})
     pnp.ransac_pnp(*static[:5], params, T_init=static[5])
-    assert (pnp.ransac_pnp.launches, pnp.ransac_pnp.slots) == (2, 8 * 2048)
+    c = _build.counters()
+    assert (c["ransac_pnp.launches"], c["ransac_pnp.slots"]) == (2, 8 * 2048)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

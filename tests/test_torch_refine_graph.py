@@ -41,6 +41,7 @@ import torch
 
 from svo_tpu.ba import solver as jsolver
 from svo_tpu.parallel import global_opt as jglobal
+from svo_tpu_torch import _build
 from svo_tpu_torch.ba import solver as tsolver
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry import camera as tcam
@@ -292,7 +293,7 @@ def test_failed_first_call_keeps_no_graph(monkeypatch, pre):
             raise RuntimeError(f"capture of {name} failed")
         self.graphs[name] = Fake(name)
         self.capture_s[name] = 0.0
-        self.launches_per_replay[name] = {f.__name__: 0 for f in tgraph.COUNTED}
+        self.launches_per_replay[name] = {k: 0 for k in _build.counters()}
         self._pool = self._pool or object()
 
     monkeypatch.setattr(tgraph.StepGraph, "_capture", capture)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from svo_tpu_torch import _build
 from svo_tpu_torch.config import Config
 from svo_tpu_torch.geometry.camera import from_intrinsics
 from svo_tpu_torch.io.synthetic import SyntheticSequence
@@ -313,28 +314,25 @@ def test_marks_leave_a_replayed_graph_bit_equal(frames, kind):
 
 
 def test_counters_are_drained_with_the_tracer_on():
-    """drain() gives what each of the frame step's counters added since the
-    last reset or drain, with the tracer on and only where one moved; off,
-    no counters."""
-    from svo_tpu_torch.geometry import pnp
-
-    pnp.ransac_pnp.slots += 5
+    """drain() gives what each of the kernels' counters (_build.counters())
+    added since the last reset or drain, with the tracer on and only where
+    one moved; off, no counters."""
+    _build.count("ransac_pnp.slots", 5)
     tracing.enable()
-    pnp.ransac_pnp.launches += 2
-    pnp.ransac_pnp.slots += 8 * 2048
+    _build.count("ransac_pnp.launches", 2)
+    _build.count("ransac_pnp.slots", 8 * 2048)
     assert tracing.drain()["counters"] == {"ransac_pnp.launches": 2,
                                            "ransac_pnp.slots": 8 * 2048}
     assert "counters" not in tracing.drain()
     tracing.disable()
-    pnp.ransac_pnp.slots += 7
+    _build.count("ransac_pnp.slots", 7)
     assert "counters" not in tracing.drain()
 
 
 def test_a_replay_adds_what_its_capture_counted(monkeypatch):
-    """A captured step's replay adds to every counter (the kernel wrappers'
+    """A captured step's replay adds to every counter (each kernel's
     launches and ransac_pnp.slots) what its capture recorded, so a traced
     run reads the size the PnP kernel ran at from drain()'s counters."""
-    from svo_tpu_torch.geometry import pnp
     from svo_tpu_torch.pipeline import graph as tgraph
 
     class Fake:
@@ -345,7 +343,7 @@ def test_a_replay_adds_what_its_capture_counted(monkeypatch):
         body()
         self.graphs[name] = Fake()
         self.capture_s[name] = 0.0
-        self.launches_per_replay[name] = {"ransac_pnp": 2, "split_gumbel": 1,
+        self.launches_per_replay[name] = {"ransac_pnp.launches": 2, "threefry.launches": 1,
                                           "ransac_pnp.slots": 2 * 1024}
 
     monkeypatch.setattr(tgraph.StepGraph, "_capture", capture)
@@ -354,7 +352,7 @@ def test_a_replay_adds_what_its_capture_counted(monkeypatch):
     tracing.enable()
     for _ in range(3):  # a capture, then two replays
         step((torch.zeros(3),))
-    assert tracing.drain()["counters"] == {"ransac_pnp.launches": 4, "split_gumbel.launches": 2,
+    assert tracing.drain()["counters"] == {"ransac_pnp.launches": 4, "threefry.launches": 2,
                                            "ransac_pnp.slots": 4 * 1024}
 
 
