@@ -16,12 +16,15 @@ bit for bit and be the faster of the two; the capability probes
 (ransac_pnp, two launches a call, bit-equal to its plain version at 1, 8
 and 16 streams); and FAST with its 3x3 NMS and suppression mask (fast_nms,
 one launch a call, bit-equal to its plain version at 1, 8 and 64 streams
-of 376x1241 and at every level of ORB's 8-level pyramid). It runs small
+of 376x1241 and at every level of ORB's 8-level pyramid); and the patches
+engine's tracker call (klt_track, every level in one launch, bit-equal to
+the chain of per-level tensor ops at the temporal, stereo and
+forward-backward shapes, 1 and 8 streams). It runs small
 card-vs-CPU agreement checks with both KLT engines, single-stream and
 batched. Then the two main paths on bench.py's 97-frame 376x1241 synthetic
 sequence, chunk 12 and keyframe cadence 6, each once per engine
-(lk_engine="patches", svo_tpu's default, through klt_patches, one launch
-per level; "fused", through lk_level, one launch per tracker call) with
+(lk_engine="patches", svo_tpu's default, through klt_track; "fused",
+through lk_level; either one launch per tracker call) with
 accuracy and launch-count checks:
 StereoVO.run_chunked (one stream), and BatchedStereoVO.process_chunk with 8
 streams in lockstep, even streams forward and odd streams reversed, where a
@@ -70,7 +73,7 @@ against the CPU path, microbench and soak_ref. Last the scaling harness,
 svo_tpu_torch.scaling_eff, each arm in fresh processes on the card (one
 card a rank where there are two, else both ranks sharing cuda:0): the
 2-stream frontend fleet in one process against one a process
-(trajectories bit-equal, each stream StereoVO(seed=s), klt_patches by the
+(trajectories bit-equal, each stream StereoVO(seed=s), klt_track by the
 launch rule), and with two cards the distributed BA at its sweep's first
 point, 1 process against 2 (ranks bit-equal, arms within 1e-3).
 
@@ -1080,6 +1083,92 @@ def phase_fast_nms(frames) -> dict:
     return dict(rows=rows, launches=launches, max_abs_err=0.0)
 
 
+def bound_klt_track(live, window: int, px: int, pys) -> tuple[float, str]:
+    """Least ms for one klt_track launch: per level, every slot live
+    entering it reads its three (w+1)^2 template windows and its py x px
+    patch once (a dead slot's windows are zeros and read nothing); every
+    slot reads pos, guess and valid and writes 4 floats. Its operations
+    (~11 a template pixel, ~14 a pixel an iteration) take a third of the
+    bytes' time or less at these shapes."""
+    n = live[0].numel()
+    nbytes = sum(int(v.sum()) * (3 * (window + 1) ** 2 + py * px) * 4
+                 for v, py in zip(live, [p for p in pys[::-1] if p]))
+    nbytes += n * (8 + 8 + 1 + 16)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_klt_track(frames) -> dict:
+    """The patches engine's tracker call in one launch (csrc/klt_track.cu,
+    ops/klt_track.py::klt_track) at the main path's shapes: temporal
+    (window 21, 4 levels, N=128), stereo (window 11, margin_x 16, 4 levels,
+    N=192) and the forward-backward call (1 level), for one stream and for
+    8 in one launch, on _track_inputs (the detector's corners, four slots
+    pinned at and past the borders, ~25% dead slots, a random incoming
+    flow) with slot 4 at NaN. Held BIT-EQUAL (int32 views of d, min_eig,
+    and status) to klt_track_ref, the chain of _patch_level calls the
+    tracker ran before, on this card; one launch a call. Then the wall of
+    one call (CUDA events, median of 25), the plain chain's wall, the
+    device us a launch (profiler, 20 launches) and the bytes bound with
+    the slots live entering each level in this run."""
+    from svo_tpu_torch.config import Config
+    from svo_tpu_torch.ops import klt, klt_track
+
+    cfg = Config(use_orb=False, image_height=SHAPE[0], image_width=SHAPE[1])
+    pairs = [f[1:] for f in frames[: STREAMS + 1]]
+    out = {"max_abs_err": 0.0, "rows": {}}
+    t0 = time.perf_counter()
+    for S in (1, STREAMS):
+        for seed, kind in enumerate(("temporal", "stereo", "fb")):
+            args, fkw = _track_inputs(pairs, S, kind, cfg, 20 * S + seed)
+            levels, grads, currs, pos, guess0, valid = args
+            pos = pos.clone()
+            pos[..., 4, :] = float("nan")
+            kw = {k: fkw[k] for k in ("window", "pys", "iters", "eps", "min_eig_threshold",
+                                      "margin_x", "pad_x", "pad_y")}
+            kw["px"] = klt._patch_cols(kw["window"], kw["margin_x"])
+            call = (levels, grads, currs, pos, guess0, valid)
+            before = _build.counters()
+            got = klt_track.klt_track(*call, **kw)
+            after = _build.counters()
+            check(after["klt_track.launches"] == before["klt_track.launches"] + 1
+                  and after["klt_track.slots"] == before["klt_track.slots"] + valid.numel(),
+                  f"klt_track {kind} S={S}: not one launch of {valid.numel()} slots")
+            live = []  # slots live entering each level, coarse to fine
+
+            def level(*a, **k):
+                live.append(a[7])
+                return klt._patch_level(*a, **k)
+
+            want = klt_track.klt_track_ref(*call, **kw)
+            klt_track.klt_track_chain(level, *call, **kw)
+            torch.cuda.synchronize()
+            n_diff = sum(int((g.contiguous().view(torch.int32) != w.contiguous().view(torch.int32))
+                             .sum()) if g.dtype == torch.float32 else int((g != w).sum())
+                         for g, w in zip(got, want))
+            tag = (f"kernel klt_track S={S} {kind:8s} {len(kw['pys'])} levels "
+                   f"N={valid.shape[-1]} w={kw['window']} px={kw['px']}")
+            check(n_diff == 0, f"{tag}: {n_diff} values differ from the plain chain")
+            fn = lambda: klt_track.klt_track(*call, **kw)  # noqa: E731
+            ms = median_ms(fn)
+            plain_ms = median_ms(lambda: klt_track.klt_track_ref(*call, **kw), reps=5, inner=1)
+            evs = [e for e in device_events(lambda: [fn() for _ in range(20)])
+                   if "klt_track_kernel" in e.key]
+            seen = sum(e.count for e in evs)
+            check(0 < seen <= 20, f"{tag}: the profiler recorded {seen} of 20 launches")
+            device_us = sum(e.self_device_time_total for e in evs) / seen
+            bound, by = bound_klt_track(live, kw["window"], kw["px"], kw["pys"])
+            share = 100.0 * bound / (device_us / 1e3)
+            out["rows"][f"{kind}_{S}"] = dict(ms=ms, plain_ms=plain_ms, device_us=device_us,
+                                              bound_ms=bound, bound_by=by, roofline_pct=share)
+            print(f"{tag}: bit-equal to the plain chain (d, status, min_eig) | tracked "
+                  f"{int(got[1].sum())} of {int(valid.sum())} live | kernel {ms:.4f} ms (events) | "
+                  f"device {device_us:.2f} us a launch | plain {plain_ms:.3f} ms | bound "
+                  f"{bound:.6f} ms ({by}; live per level {[int(v.sum()) for v in live]}), "
+                  f"{share:.2f}% of it")
+    print(f"klt_track: {time.perf_counter() - t0:.1f} s | launches {_build.launches()['klt_track']}")
+    return out
+
+
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """The largest |got - want| of two tensors of one shape; entries equal
     (NaN against NaN, inf against the same inf) count 0."""
@@ -1292,7 +1381,7 @@ def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     launches = sum(e.count for e in dev)
     check(launches > 0, "the profiler saw no device activity")
     own = {}
-    for name in ("klt_patches_kernel", "lk_level_kernel", "threefry_split_gumbel_kernel",
+    for name in ("klt_track_kernel", "lk_level_kernel", "threefry_split_gumbel_kernel",
                  "fast_nms_kernel"):
         evs = [e for e in dev if name in e.key]
         count = sum(e.count for e in evs)
@@ -1301,27 +1390,18 @@ def _launches_per_frame(seq, lk_engine, first, chunks, n=6):
     return launches / n, sum(e.self_device_time_total for e in dev) / n / 1e3, own
 
 
-def _expected_launches(engine: str, n_kf: int, steps: int = N_FRAMES - 1) -> int:
+def _expected_launches(n_kf: int, steps: int = N_FRAMES - 1) -> int:
     """Launches of the path's kernel in a cadenced run of `steps` frame
     steps (bench.py's 97-frame run unless given) with n_kf keyframe steps,
-    bootstraps included. patches:
-    one extraction per pyramid level, so (temporal levels + the fb level)
-    per frame and the stereo levels per keyframe (bootstrap included).
-    fused: every level qualifies at 376x1241, so a tracker call is one
-    launch: the temporal and the fb call per frame, the stereo call per
-    keyframe. The count does not depend on the number of streams: a launch
-    serves all of them."""
-    from svo_tpu_torch.config import Config
-
-    cfg = Config()
-    if engine == "fused":
-        return 2 * steps + n_kf
-    per_frame = cfg.temporal_klt.max_level + 1 + 1
-    per_kf = cfg.stereo_klt.max_level + 1
-    return per_frame * steps + per_kf * n_kf
+    bootstraps included. Either engine makes a tracker call one launch:
+    patches (klt_track) every level of any call, fused (lk_level) every
+    level at 376x1241, where all qualify. So the temporal and the fb call
+    per frame, the stereo call per keyframe. The count does not depend on
+    the number of streams: a launch serves all of them."""
+    return 2 * steps + n_kf
 
 
-PATH_KERNEL = {"patches": "klt_patches", "fused": "lk_level"}
+PATH_KERNEL = {"patches": "klt_track", "fused": "lk_level"}
 
 
 def _levels(use_orb: bool) -> int:
@@ -1346,7 +1426,7 @@ def _want(name: str, engine: str, n_kf: int, steps: int, levels: int) -> int:
         return 2 * steps
     if name == "fast_nms":
         return levels * n_kf
-    return _expected_launches(engine, n_kf, steps) if name == PATH_KERNEL[engine] else 0
+    return _expected_launches(n_kf, steps) if name == PATH_KERNEL[engine] else 0
 
 
 def _check_launches(tag, engine, counts, n_kf, steps: int = N_FRAMES - 1, *, levels: int):
@@ -2572,7 +2652,7 @@ def phase_eval_tables() -> dict:
     _check_launches("euroc_mini", "patches", per_run["euroc_mini"], e["keyframes"], e["frames"] - 1,
                     levels=1)
     counts = {k: sum(c[k] for c in per_run.values()) for k in per_run["euroc_mini"]}
-    check(counts["klt_patches"] > 0 and counts["lk_level"] > 0, f"eval tables: launches {counts}")
+    check(counts["klt_track"] > 0 and counts["lk_level"] > 0, f"eval tables: launches {counts}")
     return dict(counts=counts, fleet=rows, euroc=e)
 
 
@@ -2639,7 +2719,7 @@ def phase_tools(frames, seq) -> dict:
     got = {k: n - before.get(k, 0) for k, n in _build.launches().items()}
     n_kf = 3 + (CHUNK + 2 * steps) // CADENCE  # each engine: a warm chunk and 2 timed runs, 3 starts
     for engine in ENGINES:
-        want = _expected_launches(engine, n_kf, CHUNK + 2 * steps)
+        want = _expected_launches(n_kf, CHUNK + 2 * steps)
         check(got[PATH_KERNEL[engine]] == want,
               f"time_chunk: {PATH_KERNEL[engine]} launched {got[PATH_KERNEL[engine]]}, expected {want}")
     check(got["fast_nms"] == 2 * n_kf,  # both engines' keyframe steps, FAST
@@ -2653,7 +2733,7 @@ def phase_tools(frames, seq) -> dict:
     print("\n".join(f"tools | profile_chunk | {line}" for line in profile_chunk.report(p, 12)))
     want = 2 * CHUNK + CHUNK // CADENCE
     seen = sum(x["count"] for x in p["by_kind"] if x["name"] == "lk_level_kernel")
-    check(p["launches"] == {"klt_patches": 0, "lk_level": want, "threefry": CHUNK,
+    check(p["launches"] == {"klt_patches": 0, "klt_track": 0, "lk_level": want, "threefry": CHUNK,
                             "ransac_pnp": 2 * CHUNK, "fast_nms": CHUNK // CADENCE}
           and seen == want,
           f"profile_chunk: launches {p['launches']}, lk_level_kernel in the trace {seen}, "
@@ -2844,7 +2924,7 @@ def phase_scaling() -> dict:
     (MultiStereoVO(n_streams=2)) against one a process: every rank's fleet
     health finite, the arms' trajectories bit-equal, stream s equal to
     StereoVO(seed=s) on the same frames in this process, and each process's
-    klt_patches launches by the launch rule (lk_level none). With 2 cards
+    klt_track launches by the launch rule (lk_level none). With 2 cards
     (placement `cards`, one NCCL rank a card) also the distributed BA at the
     sweep's first point (12 cameras x 4,096 points, ~41k observations, 20
     LM iterations, 2 timed reps), one process against two: the two ranks'
@@ -2894,14 +2974,14 @@ def phase_scaling() -> dict:
     check(fe["trajectories_bit_equal"], "scaling frontend: the arms' trajectories differ")
     for n, ws in fworkers.items():
         for w in ws:
-            want = _expected_launches("patches", sum(w["keyframes"]),
+            want = _expected_launches(sum(w["keyframes"]),
                                       len(w["keyframes"]) * (w["frames"] - 1))
             steps = len(w["keyframes"]) * (w["frames"] - 1)  # one draw a stream's step
             n_kf = sum(w["keyframes"])  # a stream's launch a keyframe step, FAST
-            check(w["launches"] == {"klt_patches": want, "lk_level": 0, "threefry": steps,
-                                    "ransac_pnp": 2 * steps, "fast_nms": n_kf},
+            check(w["launches"] == {"klt_patches": 0, "klt_track": want, "lk_level": 0,
+                                    "threefry": steps, "ransac_pnp": 2 * steps, "fast_nms": n_kf},
                   f"scaling frontend, {n}-process arm, rank {w['rank']}: launches "
-                  f"{w['launches']}, expected {want} klt_patches, {steps} threefry, "
+                  f"{w['launches']}, expected {want} klt_track, {steps} threefry, "
                   f"{2 * steps} ransac_pnp and {n_kf} fast_nms")
     cfg, cam, lefts, rights = fsw.fleet(SCALING_FRONTEND_FRAMES)
     for s in range(fsw.STREAMS):
@@ -3329,6 +3409,8 @@ def main() -> int:
     done("RANSAC-PnP kernel against its plain version")
     fst = phase_fast_nms(frames)
     done("FAST + NMS kernel against its plain version")
+    kt = phase_klt_track(frames)
+    done("the patches engine's tracker kernel against its plain version")
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "frames.npy"), np.stack([f[1:] for f in frames]))
         del frames
@@ -3344,20 +3426,26 @@ def main() -> int:
         runs[key] = [c for r in results.values() for c in r.get(key, ())]
     scaling_launches = results["tools"]["scaling_launches"]
 
-    def path_launches(name: str) -> dict:
-        """launches_<path>: the kernel's launches on each path."""
+    def path_launches(name: str, main: bool = True) -> dict:
+        """launches_<path>: the kernel's launches on each path; a kernel of
+        the main paths launched on each, one off them (main False) on none
+        but the tools'."""
         per = {k: sum(c[name] for c in cs) for k, cs in runs.items()}
         per["launches_scaling"] = scaling_launches[name]
-        check(per["launches_single_stream"] > 0 and per["launches_batched"] > 0
-              and per["launches_shipping_orb"] > 0, f"{name} was not launched on a main path")
+        if main:
+            check(per["launches_single_stream"] > 0 and per["launches_batched"] > 0
+                  and per["launches_shipping_orb"] > 0, f"{name} was not launched on a main path")
+        else:
+            check(all(n == 0 for k, n in per.items() if k != "launches_tools"),
+                  f"{name} was launched on a main path: {per}")
         return per
 
-    def row(name, source, replaces, rows, key):
+    def row(name, source, replaces, rows, key, main=True):
         """One kernel's line: its numbers at the temporal level-0 shape of
         one stream, and of the 8-stream launch beside them."""
         r0 = next(r for r in rows["rows"] if r["kind"] == "temporal" and r["level"] == 0)
         b = batched[key]
-        per = path_launches(name)
+        per = path_launches(name, main)
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(per.values()), **per,
@@ -3381,9 +3469,27 @@ def main() -> int:
         lk_row[f"track_bound{suffix}_ms"] = t["bound_ms"]
         lk_row[f"track_device{suffix}_us"] = t["device_us"]
 
+    # the extraction: off the main paths since klt_track, the self-test's
     kp_row = row("klt_patches", "svo_tpu_torch/csrc/klt_patches.cu", "svo_tpu/ops/klt_pallas.py:139",
-                 kern, "klt_patches_temporal")
+                 kern, "klt_patches_temporal", main=False)
     kp_row["max_abs_err"] = max(kp_row["max_abs_err"], results["tools"]["selftest"])
+    # the patches engine's tracker call: one launch a call on every patches
+    # path; its times at the temporal call of one stream, 8 streams beside
+    kt_per = path_launches("klt_track")
+    k1, k8 = kt["rows"]["temporal_1"], kt["rows"][f"temporal_{STREAMS}"]
+    kt_row = {
+        "name": "klt_track", "route": "cuda", "source": "svo_tpu_torch/csrc/klt_track.cu",
+        "replaces": "the patches engine's tracker call: svo_tpu/ops/klt_pallas.py:139's "
+                    "extraction a level and ops/klt.py::_patch_level's tensor ops (plain jnp in "
+                    "svo_tpu)",
+        "launches": sum(kt_per.values()), **kt_per, "max_abs_err": kt["max_abs_err"],
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": None, "device_us": k1["device_us"],
+        "batched_ms": k8["ms"], "batched_plain_ms": k8["plain_ms"],
+        "batched_bound_ms": k8["bound_ms"], "batched_device_us": k8["device_us"],
+        **{f"{kind}_{S}_device_us": kt["rows"][f"{kind}_{S}"]["device_us"]
+           for kind in ("stereo", "fb") for S in (1, STREAMS)},
+    }
 
     # the threefry kernel: one launch a frame step on every path, for one
     # stream or all; its times at one stream, the 8-stream launch beside them
@@ -3438,6 +3544,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [
         kp_row,
+        kt_row,
         lk_row,
         tf_row,
         pnp_row,

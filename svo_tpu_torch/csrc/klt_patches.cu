@@ -11,8 +11,10 @@
 // What one launch covers: one extraction, all four images, all features of
 // all streams. Levels cannot share a launch: the current corner of a level
 // depends on the flow of the level above, which the tracker computes in
-// tensor ops between two extractions (the kernel that takes the whole level
-// loop is csrc/lk_level.cu).
+// tensor ops between two extractions (the kernels that take the whole level
+// loop are csrc/lk_level.cu and, for the patches engine, csrc/klt_track.cu,
+// which copies these windows itself: this kernel is off the tracker's path
+// on the card and serves the self-test and the tools).
 //
 // What bounds it: it is a pure copy. A temporal level-0 call (N=128,
 // 40x40 windows, 4 images) writes 128*40*40*4 images*4 B ~= 3.3 MB and reads

@@ -1,13 +1,15 @@
 """Batched pyramidal Lucas-Kanade optical flow.
 
 Port of svo_tpu/ops/klt.py (KltTracker, _track_impl, _corners, _blend) on
-its default path: per pyramid level, one rectangular patch per feature and
-image is extracted (template + its two gradients at the feature's integer
-corner, current image at the flow-predicted corner) by
-ops/klt_patches.extract_klt_patches, the CUDA kernel on the card; then all
-LK iterations run densely on the (N, PY, PX) patches with bilinear sampling
-and a per-feature convergence mask (converged features stop moving, as
-cv2's eps exit).
+its default path: per pyramid level (_patch_level), one rectangular patch
+per feature and image is extracted (template + its two gradients at the
+feature's integer corner, current image at the flow-predicted corner) by
+ops/klt_patches.extract_klt_patches; then all LK iterations run densely on
+the (N, PY, PX) patches with bilinear sampling and a per-feature
+convergence mask (converged features stop moving, as cv2's eps exit). That
+composition, with the glue between levels (ops/klt_track.klt_track_chain),
+is the plain path; on the card the whole call is ONE launch of
+ops/klt_track.klt_track (csrc/klt_track.cu), bit-equal to it.
 
 engine="fused" runs svo_tpu's other engine, the fused LK level
 (ops/lk_fused.py, svo_tpu/ops/lk_pallas.py). Which levels take it is
@@ -19,8 +21,9 @@ between levels, returning the level-0 flow, min_eig and status only. At
 376x1241 every level is in the run, so a temporal or a stereo call is one
 launch and the level-0 forward-backward call another. Levels above the run
 (small top levels that fail the rule, as L3 at 128x384) go one by one: the
-patch path, or lk_fused.lk_track_level for a level that passes the rule
-with a failing one below it. A tracker call on the card is bound by the
+patch path's one-level launch (klt_track.klt_track_level), or
+lk_fused.lk_track_level for a level that passes the rule with a failing
+one below it. A tracker call on the card is bound by the
 host's launches, not by bytes or operations, which is why the level loop
 lives in the kernel.
 
@@ -31,8 +34,8 @@ positions whose status is True carry meaning in either.
 
 The stream axis: every function takes leading axes before the feature axis
 (pos (..., N, 2), valid (..., N), pyramid levels (..., H, W)), so S streams
-are tracked by the same ops as one, and each extraction or fused run is
-one kernel launch for all of them.
+are tracked by the same ops as one, and each tracker call (or fused run)
+is one kernel launch for all of them.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from typing import NamedTuple
 import torch
 
 from svo_tpu_torch.config import KltParams
-from svo_tpu_torch.ops import lk_fused
+from svo_tpu_torch.ops import klt_track, lk_fused
 from svo_tpu_torch.ops.klt_patches import extract_klt_patches
 from svo_tpu_torch.ops.pyramid import klt_pyramid, pad_replicate, scharr_gradients
 
@@ -271,53 +274,45 @@ def _track_impl(
 
     # the level-0 seed at the scale above the top level: doubled on entering it
     guess = torch.zeros_like(pos) if init is None else init / (2.0 ** (max_level + 1))
-    status = valid
-    min_eig_out = None
-
-    # levels above the run, one by one
-    for level in range(max_level, run - 1, -1):
-        img_prev = prev_levels[level]
-        gx, gy = prev_grad_levels[level]
-        H, W = img_prev.shape[-2:]
-
-        p_lvl = pos / (2.0 ** level)
-        guess = guess * 2.0
-        py = pys[level]
-        if py == 0:
-            continue
-        p_pad = torch.stack([p_lvl[..., 0] + _PAD_X, p_lvl[..., 1] + _PAD_Y], dim=-1)
-
-        if engine == "fused" and _fused_level_ok(H, W, py, w, margin_x):
+    kw = dict(window=w, pys=pys, px=px, iters=[iters_of(level) for level in range(max_level + 1)],
+              eps=eps, min_eig_threshold=min_eig_threshold, margin_x=margin_x,
+              pad_x=_PAD_X, pad_y=_PAD_Y)
+    used = (prev_levels[:max_level + 1], prev_grad_levels[:max_level + 1],
+            curr_levels[:max_level + 1])
+    if engine == "patches":
+        # every level in one launch
+        guess, status, min_eig_out = klt_track.klt_track(*used, pos, guess, valid, **kw)
+    else:
+        def level_fn(img_prev, gx, gy, img_curr, p_lvl, p_pad, guess, status, *, py, iters,
+                     **level_kw):
+            H, W = img_prev.shape[-2:]
+            if not _fused_level_ok(H, W, py, w, margin_x):
+                return klt_track.klt_track_level(img_prev, gx, gy, img_curr, p_lvl, p_pad,
+                                                 guess, status, py=py, iters=iters, **level_kw)
             # a fused level with a failing level below it: one launch of its own
             d, min_eig, solvable, in_fin = lk_fused.lk_track_level(
-                img_prev, gx, gy, curr_levels[level], p_pad, guess, status,
-                window=w, py=py, max_iters=iters_of(level), eps=eps,
-                min_eig_threshold=min_eig_threshold,
-                margin_x=margin_x, margin_y=_MY,
+                img_prev, gx, gy, img_curr, p_pad, guess, status,
+                window=w, py=py, max_iters=iters, eps=eps,
+                min_eig_threshold=min_eig_threshold, margin_x=margin_x, margin_y=_MY,
             )
             status = (
                 status & solvable
                 & _inside(p_lvl + d, W - 2 * _PAD_X, H - 2 * _PAD_Y) & in_fin
             )
-        else:
-            d, status, min_eig = _patch_level(
-                img_prev, gx, gy, curr_levels[level], p_lvl, p_pad, guess, status,
-                w=w, py=py, px=px, margin_x=margin_x, iters=iters_of(level),
-                eps2=eps * eps, min_eig_threshold=min_eig_threshold,
-            )
-        if level == 0:
-            min_eig_out = min_eig
-        guess = d
+            return d, status, min_eig
 
-    if run:
-        # the whole run, down to level 0, in one launch
-        guess, min_eig_out, status = lk_fused.lk_track_pyramid(
-            prev_levels[:run], prev_grad_levels[:run], curr_levels[:run],
-            pos, guess, status, window=w, pys=pys[:run],
-            iters=[iters_of(level) for level in range(run)], eps=eps,
-            min_eig_threshold=min_eig_threshold, margin_x=margin_x, margin_y=_MY,
-            pad_x=_PAD_X, pad_y=_PAD_Y,
-        )
+        # levels above the run, one by one
+        guess, status, min_eig_out = klt_track.klt_track_chain(
+            level_fn, *used, pos, guess, valid, stop=run, **kw)
+        if run:
+            # the whole run, down to level 0, in one launch
+            guess, min_eig_out, status = lk_fused.lk_track_pyramid(
+                prev_levels[:run], prev_grad_levels[:run], curr_levels[:run],
+                pos, guess, status, window=w, pys=pys[:run],
+                iters=kw["iters"][:run], eps=eps,
+                min_eig_threshold=min_eig_threshold, margin_x=margin_x, margin_y=_MY,
+                pad_x=_PAD_X, pad_y=_PAD_Y,
+            )
 
     if min_eig_out is None:  # level 0 was too small to run
         min_eig_out = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)

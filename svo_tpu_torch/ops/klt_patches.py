@@ -4,7 +4,11 @@ Port of svo_tpu/ops/klt_pallas.py::extract_klt_patches. On a CUDA tensor
 the wrapper launches the hand-written kernel csrc/klt_patches.cu; on a CPU
 tensor it runs extract_klt_patches_ref, the plain PyTorch version of the
 same copy (the CPU tests' path, and what chip_smoke.py holds the kernel
-against on the card).
+against on the card). The tracker's plain level (ops/klt.py::_patch_level)
+extracts through it; on the card the patches engine's tracker call is
+csrc/klt_track.cu, which copies the same windows itself, so this kernel
+runs there for the self-test (ops/klt.py::patch_extraction_selftest), the
+tools and the plain chain the tracker kernel is held against.
 
 Contract (that of the TPU kernel): for each of N features, copy the
 (py, px) windows of prev, gx and gy at (ty0, tx0) and of curr at

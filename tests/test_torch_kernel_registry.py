@@ -16,7 +16,8 @@ import pytest
 
 from svo_tpu_torch import _build
 
-WRAPPERS = ("svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.lk_fused",
+WRAPPERS = ("svo_tpu_torch.ops.klt_patches", "svo_tpu_torch.ops.klt_track",
+            "svo_tpu_torch.ops.lk_fused",
             "svo_tpu_torch.ops.random", "svo_tpu_torch.geometry.pnp",
             "svo_tpu_torch.ops.fast", "svo_tpu_torch.probe")
 
